@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's online depth program on one NVIDIA card.
+"""Drive the PyTorch port's main paths on one NVIDIA card.
 
 Run from the repository root, on a machine with a CUDA card and nvcc:
 
@@ -7,23 +7,35 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
 
 Phases (any failure exits non-zero; nothing falls back to the CPU):
   1. device: require CUDA, print the card's name and power limit;
-  2. build: compile the CUDA kernels from csrc/ with nvcc;
-  3. kernels vs their plain PyTorch versions on the card, at the online
-     program's shapes (B=8), f32 and bf16 storage;
+  2. build: compile the CUDA kernels from csrc/ with nvcc, one process per
+     source, all at once;
+  3. kernels vs their plain PyTorch versions on the card, at their main
+     paths' shapes: B1 and B3 at the online program's (B=8, f32 and bf16
+     storage), B4 at the ground truth's finest level (B=8, 192x256, 40
+     iterations), B2 at the matching core's (B=8, f32 and bf16);
   4. the online program end to end at the car_model's full width (ARDRONE
-     640x480 uint8 frames of a forward camera step -> 320x180, trunk (3,5,5,8),(8,12,12,10), 16x16
-     window), B=128, in fast mode, 'warp' mode and 'warp_banded' mode, then
-     the per-frame DepthEstimator; the kernels' launch counts are read
-     around this phase;
+     640x480 uint8 frames of a forward camera step -> 320x180, trunk
+     (3,5,5,8),(8,12,12,10), 16x16 window), B=128, in fast mode, 'warp'
+     mode and 'warp_banded' mode, then the per-frame DepthEstimator; B1's
+     and B3's launch counts are read around this phase;
   5. card vs CPU: 4 pairs, f32 'warp_banded' mode and fast mode, the same
      package on both devices (the CPU runs the plain versions) with the same
      RANSAC noise, end to end and ego-motion stage by stage;
-  6. timing: CUDA events after warm-up, median of 5.
+  6. the flow ground truth at full size: the 'liu' solver batched at
+     BASELINE config2 (B=8, 192x256x3, alpha 0.005, ratio 0.75, min_width
+     30, 5/1/40) on frames whose scene moves 2 px, with B4's launches read
+     around it; one pair card vs CPU; the exhaustive GT at car_model's
+     geometry (180x320, 16x16 GT window and kernel), 2 pairs card vs CPU;
+  7. the matching core (bench.py's secondary program): uint8 640x480
+     frames, B=128 -> 320x180 -> trunk -> crop -> B2 in bf16 -> the depth
+     rule, with B2's launches read around it;
+  8. timing: CUDA events after warm-up, median of 5.
 
 TF32 is switched off for the whole run (cuDNN convolutions and matmuls run
 in full f32), so that the card computes what the CPU reference computes.
-The last three lines are a JSON summary of the kernels, the card, and
-{"ok": true, "device": {...}}. A longer report goes to
+The last three lines are a JSON summary of the kernels (launches on their
+main path, error against the plain version, kernel and plain times, the
+bound from this run's inputs), the card, and {"ok": true, "device": {...}}. A longer report goes to
 chiprun_out/chip_smoke_report.json.
 """
 
@@ -34,6 +46,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -67,6 +80,26 @@ TOL_R = 1e-4
 TOL_E2E_MEAN_PX = 1e-2
 TOL_E2E_P99_PX = 5e-2
 TOL_E2E_MASK = 0.999
+# B4 vs sor_plain: the same operations in the same order, rounded intrinsics
+TOL_SOR = 1e-6
+# the ground truth's liu solve, card vs CPU (same package): both run
+# 56 IRLS steps of the same arithmetic; they part only by rounding (the
+# card's reductions sum in other orders), which the smooth-texture solve
+# damps. A wrong kernel or a wrong dispatch moves u by tenths of a pixel.
+TOL_GT_MEAN_PX = 1e-3
+TOL_GT_MAX_PX = 1e-2
+# the exhaustive GT, card vs CPU: WTA over 256 cells of 768-term patch
+# sums; the card sums in another order, so an index may flip where the two
+# best costs are within float rounding
+TOL_GT_FLIP = 1e-3
+GT_SCHEDULE = dict(alpha=0.005, ratio=0.75, min_width=30, n_outer=5,
+                   n_inner=1, n_sor=40)
+GT_B, GT_H, GT_W, GT_SHIFT = 8, 192, 256, 2
+GT_SOR_CALLS = 56          # 7 levels, n_outer + k IRLS steps at level k
+# H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, FP32 FLOP/s outside
+# the tensor cores
+PEAK_BYTES = 3.35e12
+PEAK_FP32 = 67e12
 
 
 def card_line() -> str:
@@ -193,8 +226,53 @@ def phase_kernels(dev, report):
               flush=True)
         check(e <= TOL_WARP, f"B3 error {e}")
         b3_err = max(b3_err, e)
-    report["kernel_vs_plain"] = dict(b1_max_abs_err=b1_err, b3_max_abs_err=b3_err)
-    return b1_err, b3_err
+    # B4 at the ground truth's finest level (config2): random planes as the
+    # solver builds them
+    from depth_estimation_tpu_torch.flow import celiu, sor_kernel
+    planes, alpha = sor_planes(gen, GT_B, GT_H, GT_W, dev)
+    du, dv = sor_kernel.sor_redblack(*planes, alpha=alpha, n_sor=40)
+    rdu, rdv = celiu.sor_plain(*planes, alpha=alpha, n_sor=40)
+    torch.cuda.synchronize()
+    b4_err = max((du - rdu).abs().max().item(), (dv - rdv).abs().max().item())
+    print(f"B4 B={GT_B} {GT_H}x{GT_W} n_sor=40: max err {b4_err:.2e} "
+          f"(|du| up to {du.abs().max().item():.2f})", flush=True)
+    check(bool(torch.isfinite(du).all() and torch.isfinite(dv).all()),
+          "B4 non-finite")
+    check(b4_err <= TOL_SOR, f"B4 error {b4_err}")
+    # B2 at the matching core's shape
+    b2_err = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        got = matching.match_flow_fast(f1, f2, 16, 16, 32, dt)
+        ref = matching.match_flow_fast_plain(f1, f2, 16, 16, dt)
+        torch.cuda.synchronize()
+        flips = (got[0] != ref[0]).float().mean().item()
+        errs = [(a - b).abs().max().item() for a, b in zip(got[1:], ref[1:])]
+        print(f"B2 {str(dt)[6:]}: idx mismatch {flips:.2e}, max err ey "
+              f"{errs[0]:.2e} ex {errs[1]:.2e} pmax {errs[2]:.2e}", flush=True)
+        check(flips <= TOL_FLIP, f"B2 idx mismatch {flips}")
+        check(max(errs[:2]) <= TOL_FLOW_PX and errs[2] <= TOL_PROB,
+              f"B2 ey/ex/pmax error {errs}")
+        b2_err = max(b2_err, max(errs))
+    errs = dict(match_fused=b1_err, warp_banded=b3_err, sor_redblack=b4_err,
+                match_fast=b2_err)
+    report["kernel_vs_plain"] = errs
+    return errs
+
+
+def sor_planes(gen, B, H, W, dev):
+    """Random well-conditioned SOR planes as the solver builds them: zero
+    boundary weights, denominators above the weights' sum."""
+    from depth_estimation_tpu_torch.flow import celiu
+
+    def rnd():
+        return torch.rand(B, H, W, generator=gen, device=dev)
+    alpha = 0.3
+    w = celiu._neighbor_weights(rnd() + 0.1)
+    coeff = alpha * (w[0] + w[1] + w[2] + w[3])
+    return (*w, rnd() + 0.5 + coeff, rnd() + 0.5 + coeff,
+            torch.randn(B, H, W, generator=gen, device=dev),
+            torch.randn(B, H, W, generator=gen, device=dev),
+            (rnd() - 0.5) * 0.1), alpha
 
 
 def phase_slice(dev, geom, params, report):
@@ -377,7 +455,166 @@ def phase_card_vs_cpu(dev, geom, params, report):
                       f"{mode}, pair {i}: xflow difference {r}")
 
 
-def phase_timing(dev, card, ests, frames, report):
+def shifted_textures(gen, B, H, W, shift, dev):
+    """B smooth random RGB scenes made on ``dev`` from a seed (uniform noise
+    under a sigma-2 Gaussian), seen twice: (im1, im2), each (B, H, W, 3)
+    f32, where a feature at x in im1 appears at x + shift in im2 (so the
+    flow is +shift px along x). On these the liu solve is well-conditioned:
+    a 1-ulp change of one input moves u by under 1e-5 px at 192x256. On
+    bilinear upscales of coarse noise it is not (up to 17 px at single
+    pixels), and card and CPU then part by the solver's own chaos."""
+    from depth_estimation_tpu_torch.flow import celiu
+    base = torch.rand(B, H, W + shift, 3, generator=gen, device=dev)
+    big = celiu.gaussian_smooth(base, 2.0, 6)
+    return (big[:, :, shift:shift + W].contiguous(),
+            big[:, :, :W].contiguous())
+
+
+def diff_stats(a, b):
+    d = (a.float().cpu() - b.float().cpu()).abs().flatten()
+    return dict(mean=d.mean().item(), p99=torch.quantile(d, 0.99).item(),
+                max=d.max().item())
+
+
+def phase_gt(dev, geom, report):
+    """The flow ground truth at full size: the 'liu' solve at config2 with
+    B4's launches read around it, one pair card vs CPU, and the exhaustive
+    GT at car_model's geometry card vs CPU. Returns B4's launch count."""
+    from depth_estimation_tpu_torch.data import groundtruth as gt
+    from depth_estimation_tpu_torch.flow import celiu, sor_kernel
+    gen = torch.Generator(device=dev).manual_seed(3)
+    im1, im2 = shifted_textures(gen, GT_B, GT_H, GT_W, GT_SHIFT, dev)
+    sor_kernel.sor_redblack.launches = 0
+    u, v, warped = celiu.coarse2fine_flow_batched(im1, im2, **GT_SCHEDULE)
+    torch.cuda.synchronize()
+    launches = sor_kernel.sor_redblack.launches
+    check(tuple(u.shape) == tuple(v.shape) == (GT_B, GT_H, GT_W)
+          and tuple(warped.shape) == (GT_B, GT_H, GT_W, 3), "GT shapes")
+    check(bool(torch.isfinite(u).all() and torch.isfinite(v).all()),
+          "GT non-finite flow")
+    med_u = u[:, 12:-12, 12:-12].flatten(1).median(dim=1).values
+    med_v = v[:, 12:-12, 12:-12].flatten(1).median(dim=1).values
+    print(f"GT liu config2: B={GT_B} {GT_H}x{GT_W}x3, {launches} B4 launches, "
+          f"median inner x-flow {med_u.min().item():.4f}..{med_u.max().item():.4f} "
+          f"px (shift {GT_SHIFT}), y-flow {med_v.abs().max().item():.4f} px",
+          flush=True)
+    check(launches == GT_SOR_CALLS, f"B4 launched {launches} times, "
+          f"expected {GT_SOR_CALLS}")
+    check(bool(((med_u - GT_SHIFT).abs() < 0.25).all()
+               and (med_v.abs() < 0.25).all()), f"GT shift not recovered: "
+          f"{med_u.tolist()} {med_v.tolist()}")
+    cu, cv, _ = celiu.coarse2fine_flow_batched(im1[:1].cpu(), im2[:1].cpu(),
+                                               **GT_SCHEDULE)
+    su, sv = diff_stats(u[:1], cu), diff_stats(v[:1], cv)
+    print(f"GT liu card vs CPU, 1 pair: u diff mean {su['mean']:.2e} p99 "
+          f"{su['p99']:.2e} max {su['max']:.2e}; v diff mean {sv['mean']:.2e} "
+          f"p99 {sv['p99']:.2e} max {sv['max']:.2e} px", flush=True)
+    # the exhaustive GT (cross-correlation), car_model's geometry
+    g1, g2 = shifted_textures(gen, 2, geom.hImg, geom.wImg, 3, dev)
+    card = gt.exhaustive_flow_batched(geom, g1, g2, device=dev)
+    cpu = gt.exhaustive_flow_batched(geom, g1.cpu(), g2.cpu(), device="cpu")
+    flips = max(float((a != b).mean()) for a, b in zip(card[:2], cpu[:2]))
+    conf_off = float((card[2] != cpu[2]).mean())
+    inner = card[1][:, 30:-30, 30:-30]
+    print(f"GT exhaustive {geom.hImg}x{geom.wImg}, {geom.maxhGT}x"
+          f"{geom.maxwGT} window, {geom.hKernelGT}x{geom.wKernelGT} kernel, "
+          f"2 pairs card vs CPU: flow differs on {flips:.2e} of pixels, "
+          f"confidence on {conf_off:.2e}; median inner x-flow "
+          f"{float(np.median(inner)):.1f} px (shift 3)", flush=True)
+    report["gt"] = dict(liu_launches_sor=launches, median_u=med_u.tolist(),
+                        card_vs_cpu_u=su, card_vs_cpu_v=sv,
+                        exhaustive_flip_share=flips,
+                        exhaustive_conf_mismatch=conf_off)
+    check(su["mean"] <= TOL_GT_MEAN_PX and sv["mean"] <= TOL_GT_MEAN_PX
+          and su["max"] <= TOL_GT_MAX_PX and sv["max"] <= TOL_GT_MAX_PX,
+          f"GT card vs CPU: {su} {sv}")
+    check(flips <= TOL_GT_FLIP and conf_off <= TOL_GT_FLIP,
+          f"GT exhaustive card vs CPU: {flips} {conf_off}")
+    check(abs(float(np.median(inner)) - 3) < 0.5, "GT exhaustive shift")
+    return launches, (im1, im2)
+
+
+@torch.no_grad()
+def matching_core(model, frames1, frames2):
+    """bench.py's matching core with the port: normalise the uint8 frames,
+    resize to the working size, run the trunk, crop the reference branch,
+    match with B2 on bf16 storage, and apply the x-flow depth rule."""
+    from depth_estimation_tpu_torch.api_batched import depth_from_xflow
+    from depth_estimation_tpu_torch.data import images
+    from depth_estimation_tpu_torch.models.flow import crop_features_center
+    from depth_estimation_tpu_torch.ops import matching
+    g = model.geometry
+    small1 = images.scale_batched_device(frames1.float() / 255.0, g.hImg, g.wImg)
+    small2 = images.scale_batched_device(frames2.float() / 255.0, g.hImg, g.wImg)
+    f1 = crop_features_center(g, model.features(small1))
+    f2 = model.features(small2)
+    idx, ey, ex, pmax = matching.match_flow_fast(f1, f2, g.maxh, g.maxw, 32,
+                                                 torch.bfloat16)
+    return ex, ey, depth_from_xflow(ex, ex.shape[-1]), pmax, (f1, f2)
+
+
+def phase_matching_core(dev, card, report):
+    """The matching core at B=128 through B2, its launches read around one
+    run; B2's answer beside B1's on the same features; frame-pairs/s."""
+    from depth_estimation_tpu_torch.models import flow as flow_model
+    from depth_estimation_tpu_torch.models import io as mio
+    from depth_estimation_tpu_torch.ops import matching
+    geom, trunk = mio.load_filter(CAR_MODEL, device=dev)
+    model = flow_model.FlowModel(geom, trunk)
+    t1, t2 = forward_frames(torch.Generator(device=dev).manual_seed(4),
+                            B_MAIN, dev)
+    matching.match_flow_fast.launches = 0
+    ex, ey, depth, pmax, (f1, f2) = matching_core(model, t1, t2)
+    torch.cuda.synchronize()
+    launches = matching.match_flow_fast.launches
+    shape = (B_MAIN, geom.hImg - geom.maxh + 1 - geom.hKernel + 1,
+             geom.wImg - geom.maxw + 1 - geom.wKernel + 1)
+    check(tuple(ex.shape) == tuple(depth.shape) == shape,
+          f"matching core shapes {ex.shape} {depth.shape}")
+    check(bool(torch.isfinite(ex).all() and torch.isfinite(ey).all()
+               and torch.isfinite(pmax).all()), "matching core non-finite")
+    check(launches == 1, f"B2 launched {launches} times in one run")
+    fused = matching.match_flow_fused(f1, f2, geom.maxh, geom.maxw, 8, False,
+                                      torch.bfloat16)
+    fast = matching.match_flow_fast(f1, f2, geom.maxh, geom.maxw, 32,
+                                    torch.bfloat16)
+    agree = (fast[0] == fused[0]).float().mean().item()
+    dex = (fast[2] - fused[2]).abs()
+    ms = cuda_ms(lambda: matching_core(model, t1, t2))
+    fps = B_MAIN / (ms / 1e3)
+    print(f"matching core: B={B_MAIN} uint8 640x480 -> {geom.hImg}x{geom.wImg}"
+          f" -> trunk -> B2 bf16, {launches} B2 launch; median |x-flow| "
+          f"{ex.abs().median().item():.3f} px; B2 vs B1 on the same features: "
+          f"WTA equal on {agree:.5f}, x-flow diff mean {dex.mean().item():.2e} "
+          f"max {dex.max().item():.2e} px", flush=True)
+    print(f"[{card}] matching core: {ms:.1f} ms per B={B_MAIN} step = "
+          f"{fps:.1f} frame-pairs/s", flush=True)
+    report["matching_core"] = dict(launches_match_fast=launches, ms=ms,
+                                   fps=fps, b2_vs_b1_wta_agree=agree,
+                                   b2_vs_b1_xflow_mean=dex.mean().item())
+    check(agree >= 0.99 and dex.mean().item() <= 1e-2,
+          f"B2 vs B1 on the matching core: {agree} {dex.mean().item()}")
+    return launches
+
+
+def bound_ms(nbytes, flops):
+    """The least time the card could take: the larger of the bytes over the
+    HBM rate and the FP32 operations over the FP32 peak. Returns (ms, 'bytes'
+    or 'operations')."""
+    tb, to = nbytes / PEAK_BYTES, flops / PEAK_FP32
+    return 1e3 * max(tb, to), ("bytes" if tb >= to else "operations")
+
+
+def matcher_bound(f1, f2, maxh, maxw, n_out, flops_per_cell):
+    """A fused matcher's bound: f1 and f2 read once, n_out (B, H, W) 4-byte
+    outputs written once; flops_per_cell per pixel and window cell."""
+    B, H, W, _ = f1.shape
+    nbytes = (f1.numel() * f1.element_size() + f2.numel() * f2.element_size()
+              + n_out * B * H * W * 4)
+    return bound_ms(nbytes, B * H * W * maxh * maxw * flops_per_cell)
+
+
+def phase_timing(dev, card, ests, frames, gt_frames, report):
     from depth_estimation_tpu_torch.ops import matching, warp
     from depth_estimation_tpu_torch.geometry3d import undistort as undist
     t1, t2 = frames
@@ -415,8 +652,45 @@ def phase_timing(dev, card, ests, frames, report):
         rows[f"warp_banded_{str(dt)[6:]}"] = (k, p)
         print(f"[{card}] B3 warp_banded {str(dt)[6:]}, B={B_MAIN} 165x305x10 "
               f"band 8: kernel {k:.3f} ms, plain {p:.3f} ms", flush=True)
-    report["timing"] = dict(card=card, fps=fps, kernels_ms=rows)
-    return rows
+    # B2 at the matching core's shape, in the same call as B1 above
+    for dt in (torch.float32, torch.bfloat16):
+        k = cuda_ms(lambda: matching.match_flow_fast(f1, f2, 16, 16, 32, dt))
+        p = cuda_ms(lambda: matching.match_flow_fast_plain(f1, f2, 16, 16, dt),
+                    reps=3)
+        rows[f"match_fast_{str(dt)[6:]}"] = (k, p)
+        print(f"[{card}] B2 match_fast {str(dt)[6:]}, B={B_MAIN} 150x290x10 "
+              f"16x16: kernel {k:.3f} ms, plain {p:.1f} ms (B1 same shape: "
+              f"{rows['match_fused_' + str(dt)[6:]][0]:.3f} ms)", flush=True)
+    # B4 at the ground truth's finest level, and one config2 solve
+    from depth_estimation_tpu_torch.flow import celiu, sor_kernel
+    planes, alpha = sor_planes(gen, GT_B, GT_H, GT_W, dev)
+    k = cuda_ms(lambda: sor_kernel.sor_redblack(*planes, alpha=alpha, n_sor=40))
+    p = cuda_ms(lambda: celiu.sor_plain(*planes, alpha=alpha, n_sor=40))
+    rows["sor_redblack"] = (k, p)
+    print(f"[{card}] B4 sor_redblack, B={GT_B} {GT_H}x{GT_W} n_sor=40: "
+          f"kernel {k:.3f} ms, plain {p:.3f} ms", flush=True)
+    im1, im2 = gt_frames
+    ms = cuda_ms(lambda: celiu.coarse2fine_flow_batched(im1, im2,
+                                                        **GT_SCHEDULE), reps=3)
+    fps["gt_liu_config2"] = GT_B / (ms / 1e3)
+    print(f"[{card}] GT liu config2 solve: B={GT_B} {GT_H}x{GT_W}x3 "
+          f"{ms:.1f} ms = {fps['gt_liu_config2']:.2f} pairs/s", flush=True)
+    # bounds from this run's inputs
+    bounds = {
+        "match_fused": matcher_bound(f1, f2, 16, 16, 5, 3 * 10 + 5),
+        "match_fast": matcher_bound(f1.to(torch.bfloat16), f2.to(torch.bfloat16),
+                                    16, 16, 4, 2 * 10 + 3 + 7),
+        "warp_banded": bound_ms(
+            imgs.numel() * 4 + xs.numel() * 4 + ys.numel() * 4
+            + imgs.numel() * 4, imgs.numel() * 7),
+        "sor_redblack": bound_ms(11 * planes[0].numel() * 4,
+                                 planes[0].numel() * 40 * 30),
+    }
+    for name, (b, by) in bounds.items():
+        print(f"bound {name}: {b:.4f} ms ({by})", flush=True)
+    report["timing"] = dict(card=card, fps=fps, kernels_ms=rows,
+                            bounds_ms=bounds)
+    return rows, bounds
 
 
 def main() -> int:
@@ -438,33 +712,44 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = _kernels.library()
     report["build_seconds"] = lib.build_seconds
-    print(f"build: {lib.path.name} in {lib.build_seconds:.1f} s "
-          f"(nvcc; {time.perf_counter() - t0:.1f} s with loading)", flush=True)
+    print(f"build: {len(lib.paths)} libraries, nvcc in parallel "
+          f"{lib.build_seconds:.1f} s ({time.perf_counter() - t0:.1f} s with "
+          f"loading)", flush=True)
     for line in lib.log.splitlines():
-        if "registers" in line or "spill" in line:
+        if line.startswith("=="):
+            print("  " + line[3:])
+        elif "registers" in line or "spill" in line:
             print("  ptxas " + line.split("ptxas info    :")[-1].strip())
 
-    b1_err, b3_err = phase_kernels(dev, report)
+    errs = phase_kernels(dev, report)
 
     geom, _, params, _ = mio.load_model(CAR_MODEL)
     counts, ests, frames = phase_slice(dev, geom, params, report)
     phase_card_vs_cpu(dev, geom, params, report)
-    rows = phase_timing(dev, card, ests, frames, report)
+    counts["sor_redblack"], gt_frames = phase_gt(dev, geom, report)
+    counts["match_fast"] = phase_matching_core(dev, card, report)
+    rows, bounds = phase_timing(dev, card, ests, frames, gt_frames, report)
+
+    def entry(name, fn, src, replaces, row):
+        return {"name": fn, "route": "cuda",
+                "source": f"depth_estimation_tpu_torch/csrc/{src}",
+                "replaces": replaces, "launches": counts[name],
+                "max_abs_err": errs[name], "ms": rows[row][0],
+                "plain_ms": rows[row][1], "bound_ms": bounds[name][0],
+                "bound_by": bounds[name][1], "library_ms": None}
 
     kernels = [
-        {"name": "match_flow_fused", "route": "cuda",
-         "source": "depth_estimation_tpu_torch/csrc/match_fused.cu",
-         "replaces": "depth_estimation_tpu/ops/matching.py:116",
-         "launches": counts["match_fused"], "max_abs_err": b1_err,
-         "ms": rows["match_fused_float32"][0],
-         "plain_ms": rows["match_fused_float32"][1]},
-        {"name": "banded_bilinear_warp", "route": "cuda",
-         "source": "depth_estimation_tpu_torch/csrc/warp_banded.cu",
-         "replaces": "depth_estimation_tpu/ops/warp.py:38",
-         "launches": counts["warp_banded"], "max_abs_err": b3_err,
-         "ms": rows["warp_banded_float32"][0],
-         "plain_ms": rows["warp_banded_float32"][1]},
+        entry("match_fused", "match_flow_fused", "match_fused.cu",
+              "depth_estimation_tpu/ops/matching.py:116", "match_fused_float32"),
+        entry("warp_banded", "banded_bilinear_warp", "warp_banded.cu",
+              "depth_estimation_tpu/ops/warp.py:38", "warp_banded_float32"),
+        entry("match_fast", "match_flow_fast", "match_fast.cu",
+              "depth_estimation_tpu/ops/matching.py:366", "match_fast_bfloat16"),
+        entry("sor_redblack", "sor_redblack", "sor_redblack.cu",
+              "depth_estimation_tpu/flow/sor_kernel.py:50", "sor_redblack"),
     ]
+    for k in kernels:
+        check(k["launches"] > 0, f"{k['name']} not launched on its path")
     report["kernels"] = kernels
     os.makedirs(os.path.dirname(REPORT), exist_ok=True)
     with open(REPORT, "w") as f:

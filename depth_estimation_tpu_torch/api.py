@@ -27,11 +27,13 @@ from .models import flow as flow_model
 from .models.filters import ConvFilter
 from .models.io import filter_state_from_jax
 from .ops import extract, matching
+from .utils.device import resolve as resolve_device
 from .utils.timer import Timers
 
 
 class DepthEstimator:
-    """Model trunk plus the previous frame's state, on ``device``.
+    """Model trunk plus the previous frame's state, on ``device`` (the card
+    by default; raises where there is none unless given ``device="cpu"``).
 
     ego_resolution: 'working' (default) estimates ego-motion on the
     downscaled, undistorted frame the matcher consumes; 'full' undistorts at
@@ -41,7 +43,7 @@ class DepthEstimator:
 
     def __init__(self, geometry: Geometry, params, cal: Calibration,
                  head: str = "mean", sync_timers: bool = False,
-                 ego_resolution: str = "working", *, device="cpu",
+                 ego_resolution: str = "working", *, device="cuda",
                  ransac_noise=None):
         geometry.validate()
         if ego_resolution not in ("working", "full"):
@@ -52,7 +54,7 @@ class DepthEstimator:
         self.cal = cal
         self.head = head
         self.ego_resolution = ego_resolution
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.timers = Timers(sync_device=sync_timers)
         self.ransac_noise = (None if ransac_noise is None else
                              torch.as_tensor(ransac_noise, dtype=torch.float32,

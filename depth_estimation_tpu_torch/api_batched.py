@@ -31,9 +31,11 @@ from .geometry3d import undistort as undist
 from .geometry3d.calibration import Calibration
 from .models import flow as flow_model
 from .models.filters import ConvFilter
+from .models.flow import embed_center
 from .models.io import filter_state_from_jax
 from .models.multiscale import avg_downsample
 from .ops import extract, matching
+from .utils.device import resolve as resolve_device
 
 
 def depth_from_xflow(xflow: torch.Tensor, w_img: int) -> torch.Tensor:
@@ -46,18 +48,10 @@ def depth_from_xflow(xflow: torch.Tensor, w_img: int) -> torch.Tensor:
                        torch.abs(j - cx) / torch.clamp(absflow, min=0.1))
 
 
-def embed_center(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
-    """Zero (..., h, w) frame with x (..., H, W) set at its center."""
-    H, W = x.shape[-2:]
-    hoff, woff = (h - H) // 2, (w - W) // 2
-    out = x.new_zeros(x.shape[:-2] + (h, w))
-    out[..., hoff:hoff + H, woff:woff + W] = x
-    return out
-
-
 class BatchedDepthEstimator:
     """B independent frame streams; state (previous undistorted frames and
-    feature maps) stays on ``device`` between steps.
+    feature maps) stays on ``device`` between steps (the card by default;
+    raises where there is none unless given ``device="cpu"``).
 
     ``params`` is the trunk's flax-layout tree of numpy arrays (as
     ``models.io.load_model`` returns it; may be None and set later with
@@ -78,7 +72,7 @@ class BatchedDepthEstimator:
                  ransac_samples: int = 64, state_dtype=None,
                  match_block=8, warp_band: int = 8,
                  corner_selector: str = "topk", lk_search: int = 32,
-                 *, device="cpu", ransac_noise=None):
+                 *, device="cuda", ransac_noise=None):
         geometry.validate()
         if head not in ("mean", "max"):
             raise ValueError(f"head {head!r}")
@@ -109,7 +103,7 @@ class BatchedDepthEstimator:
         self.warp_band = warp_band
         self.corner_selector = corner_selector
         self.lk_search = lk_search
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.ransac_noise = (None if ransac_noise is None else
                              torch.as_tensor(ransac_noise, dtype=torch.float32,
                                              device=self.device))

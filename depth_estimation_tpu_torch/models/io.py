@@ -169,10 +169,14 @@ def load_model(path: str) -> Tuple[Geometry, Learning, Dict, dict]:
     return geom, learning, params, meta
 
 
-def load_filter(path: str, device=None):
-    """Checkpoint directory -> (geometry, ConvFilter with its weights)."""
+def load_filter(path: str, device="cuda"):
+    """Checkpoint directory -> (geometry, ConvFilter with its weights on
+    ``device``: the card by default; raises where there is none unless given
+    ``device="cpu"``)."""
+    from ..utils.device import resolve
     from .filters import ConvFilter
+    dev = resolve(device)
     geom, _, params, _ = load_model(path)
     trunk = ConvFilter(geom)
     trunk.load_state_dict(filter_state_from_jax(geom, params))
-    return geom, trunk.to(device) if device is not None else trunk
+    return geom, trunk.to(dev)

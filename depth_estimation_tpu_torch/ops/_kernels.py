@@ -1,10 +1,11 @@
 """Build and load the package's CUDA kernels.
 
 The sources in ``csrc/*.cu`` expose a plain C interface. They are compiled
-at first use with nvcc for Hopper (``sm_90a``) into one shared library
-under ``_build/<hash of the sources and flags>/`` and loaded with ctypes;
-the build takes seconds because no source includes PyTorch's headers. The
-library is built only when a wrapper is handed a CUDA tensor, never at
+at first use with nvcc for Hopper (``sm_90a``), one nvcc process per source,
+all started together, each into its own shared library under
+``_build/<hash of the sources and flags>/``, and loaded with ctypes; the
+build takes seconds because no source includes PyTorch's headers. The
+libraries are built only when a wrapper is handed a CUDA tensor, never at
 import, so the package imports on machines without nvcc or a card.
 """
 
@@ -24,7 +25,8 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("match_fused.cu", "warp_banded.cu")
+SOURCES = ("match_fused.cu", "warp_banded.cu", "sor_redblack.cu",
+           "match_fast.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -32,7 +34,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures: every function returns a cudaError_t (0 = success) or a
-# negative code for a configuration it does not support
+# negative code for a configuration it does not support. The function
+# ``<stem>_launch`` lives in ``csrc/<stem>.cu``.
 SIGNATURES = {
     # f1, f2, idx, ey, ex, pmax, extra, B, H, W, K, maxh, maxw, is_bf16,
     # want_marg, want_conf, conf_threshold, stream
@@ -40,7 +43,17 @@ SIGNATURES = {
                            _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     # img, xs, ys, out, B, H, W, C, band, is_bf16, stream
     "warp_banded_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # w_w, w_e, w_n, w_s, denom_u, denom_v, b1, b2, imdxy, du, dv, B, H, W,
+    # n_sor, neg_alpha, omega, one_minus_omega, stream
+    "sor_redblack_launch": [_P] * 11 + [_I, _I, _I, _I, _F, _F, _F, _P],
+    # f1, f2, idx, ey, ex, pmax, B, H, W, K, maxh, maxw, is_bf16, stream
+    "match_fast_launch": [_P, _P, _P, _P, _P, _P,
+                          _I, _I, _I, _I, _I, _I, _I, _P],
 }
+
+
+def _stem(fn_name: str) -> str:
+    return fn_name[:-len("_launch")]
 
 
 def _nvcc() -> str:
@@ -61,15 +74,15 @@ def _digest() -> str:
 
 
 class KernelLibrary:
-    """The loaded shared library, with its build facts."""
+    """The loaded shared libraries (one per source), with their build facts."""
 
-    def __init__(self, path: Path, build_seconds: float, log: str):
-        self.path = path
+    def __init__(self, paths: dict, build_seconds: float, log: str):
+        self.paths = paths
         self.build_seconds = build_seconds
         self.log = log
-        self.lib = ctypes.CDLL(str(path))
+        self.libs = {stem: ctypes.CDLL(str(p)) for stem, p in paths.items()}
         for name, argtypes in SIGNATURES.items():
-            fn = getattr(self.lib, name)
+            fn = getattr(self.libs[_stem(name)], name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
 
@@ -77,7 +90,7 @@ class KernelLibrary:
         """Call a launcher on PyTorch's current stream and raise on any
         launch error the C side reports."""
         stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(self.lib, name)(*args, stream)
+        err = getattr(self.libs[_stem(name)], name)(*args, stream)
         if err != 0:
             raise RuntimeError(f"{name} failed with code {err} "
                                f"({_error_name(err)})")
@@ -92,29 +105,40 @@ def _error_name(err: int) -> str:
 def build() -> KernelLibrary:
     """Compile (if not already built for these sources) and load."""
     out_dir = BUILD_ROOT / _digest()
-    lib = out_dir / "libdepth_kernels.so"
+    stems = [Path(s).stem for s in SOURCES]
+    paths = {s: out_dir / f"lib{s}.so" for s in stems}
     log_path = out_dir / "build.log"
-    if lib.exists():
-        return KernelLibrary(lib, 0.0, log_path.read_text()
+    if all(p.exists() for p in paths.values()):
+        return KernelLibrary(paths, 0.0, log_path.read_text()
                              if log_path.exists() else "")
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libdepth_kernels.{os.getpid()}.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(CSRC / s) for s in SOURCES]]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    procs = {}
+    for s in stems:
+        tmp = out_dir / f"lib{s}.{os.getpid()}.so"
+        procs[s] = (tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{s}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs, failed = [], []
+    for s, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        logs.append(f"== {s}.cu\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"{s}.cu ({proc.returncode})")
     seconds = time.perf_counter() - t0
-    log = res.stdout + res.stderr
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
+    log = "".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed for {', '.join(failed)}:\n{log}")
+    for s, (tmp, _) in procs.items():
+        os.replace(tmp, paths[s])
     log_path.write_text(log)
-    os.replace(tmp, lib)
-    return KernelLibrary(lib, seconds, log)
+    return KernelLibrary(paths, seconds, log)
 
 
 @lru_cache(maxsize=1)
 def library() -> KernelLibrary:
-    """The process's kernel library, built on first use."""
+    """The process's kernel libraries, built on first use."""
     return build()
 
 

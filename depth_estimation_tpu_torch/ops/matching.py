@@ -9,10 +9,15 @@ is the centered displacement ``(dy - halfh1, dx - halfw1)``.
   * ``match_flow_fused`` — match + softmax + winner-take-all + soft-argmax
     (+ the y-marginal or the 'mean'-head confidence gate) in one pass. On a
     CUDA tensor it launches the hand-written kernel ``csrc/match_fused.cu``
-    (the port of the Pallas ``_fused_kernel``); on a CPU tensor it runs
-    ``match_flow_fused_plain``, the same arithmetic in plain torch.
+    (kernel B1, the port of the Pallas ``_fused_kernel``); on a CPU tensor
+    it runs ``match_flow_fused_plain``, the same arithmetic in plain torch.
+  * ``match_flow_fast`` — the same contract without marginal or gate, on
+    the norm-decomposed logit ``2<f1, f2> - |f2|^2 - |f1|^2`` with one
+    running max over all cells, visited dx-major. On a CUDA tensor it
+    launches ``csrc/match_fast.cu`` (kernel B2, the port of the Pallas
+    ``_fast_kernel``); on a CPU tensor it runs ``match_flow_fast_plain``.
 
-Numerics shared by the kernel and the plain version, and with the
+Numerics of B1, shared by its kernel and plain version, and with the
 reference: features are stored in ``dtype`` (f32 or bf16) and upcast to f32
 before the subtraction; channel sums run in k order; the softmax is
 row-local (each dy row keeps its own running max, sum and x-sum, combined
@@ -221,3 +226,119 @@ def match_flow_fused(
 
 
 match_flow_fused.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Kernel B2: norm-decomposed matcher
+# ---------------------------------------------------------------------------
+
+def _dot_k_order(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """sum_k a * b over the last dim, accumulated in k order in f32."""
+    acc = a[..., 0] * b[..., 0]
+    for k in range(1, a.shape[-1]):
+        acc = acc + a[..., k] * b[..., k]
+    return acc
+
+
+def match_flow_fast_plain(f1, f2, maxh: int, maxw: int, dtype=torch.float32):
+    """Plain-torch twin of kernel B2, in the kernel's order. f1 (B, H, W,
+    K), f2 (B, H + maxh - 1, W + maxw - 1, K), stored in ``dtype`` and
+    upcast to f32 before any product. Norms |f1|^2, |f2|^2 and the cross
+    term <f1, f2> are summed in k order from the stored values; the logit
+    is t = (2 cross - |f2|^2) - |f1|^2. Cells are visited dx outer, dy
+    inner, with one running max bm: m = max(bm, t), s = s exp(bm - m) +
+    exp(t - m) (and the dy/dx-weighted sums), the WTA index moves where
+    t > bm. The middle cell wins where it attains bm; pmax = 1 / s."""
+    a = f1.to(dtype).float()
+    b = f2.to(dtype).float()
+    B, H, W, _ = a.shape
+    n1 = _dot_k_order(a, a)
+    n2 = _dot_k_order(b, b)
+    halfh1 = math.ceil(maxh / 2) - 1
+    halfw1 = math.ceil(maxw / 2) - 1
+    mid = _middle(maxh, maxw)
+    dev = a.device
+    shape = (B, H, W)
+    s = torch.zeros(shape, device=dev)
+    sy = torch.zeros(shape, device=dev)
+    sx = torch.zeros(shape, device=dev)
+    bi = torch.zeros(shape, dtype=torch.int32, device=dev)
+    bm = torch.full(shape, NEG_INF, device=dev)
+    tmid = torch.zeros(shape, device=dev)
+    for dx in range(maxw):
+        for dy in range(maxh):
+            d = dy * maxw + dx
+            cross = _dot_k_order(a, b[:, dy:dy + H, dx:dx + W])
+            t = 2.0 * cross - n2[:, dy:dy + H, dx:dx + W] - n1
+            m_new = torch.maximum(bm, t)
+            scale = torch.exp(bm - m_new)
+            e = torch.exp(t - m_new)
+            s = s * scale + e
+            sy = sy * scale + e * (dy - halfh1)
+            sx = sx * scale + e * (dx - halfw1)
+            bi = torch.where(t > bm, torch.full_like(bi, d), bi)
+            bm = m_new
+            if d == mid:
+                tmid = t
+    idx = torch.where(tmid >= bm, torch.full_like(bi, mid), bi)
+    return idx, sy / s, sx / s, 1.0 / s
+
+
+def _match_flow_fast_cuda(f1, f2, maxh, maxw, dtype):
+    f1 = f1.to(dtype).contiguous()
+    f2 = f2.to(dtype).contiguous()
+    dts = (torch.float32, torch.bfloat16)
+    _kernels.check_cuda_tensor("f1", f1, dts, 4)
+    _kernels.check_cuda_tensor("f2", f2, dts, 4)
+    if f2.device != f1.device:
+        raise ValueError("f1 and f2 must be on the same device")
+    B, H, W, K = f1.shape
+    if K > MAX_CHANNELS:
+        raise ValueError(f"match_fast kernel supports K <= {MAX_CHANNELS}")
+    idx = torch.empty((B, H, W), dtype=torch.int32, device=f1.device)
+    ey, ex, pmax = (torch.empty((B, H, W), device=f1.device) for _ in range(3))
+    lib = _kernels.library()
+    with torch.cuda.device(f1.device):
+        lib.call("match_fast_launch", f1.data_ptr(), f2.data_ptr(),
+                 idx.data_ptr(), ey.data_ptr(), ex.data_ptr(), pmax.data_ptr(),
+                 B, H, W, K, maxh, maxw, int(dtype == torch.bfloat16))
+    match_flow_fast.launches += 1
+    return idx, ey, ex, pmax
+
+
+def match_flow_fast(
+    f1: torch.Tensor, f2: torch.Tensor, maxh: int, maxw: int,
+    block_rows: int = 8, dtype=torch.float32,
+) -> Tuple[torch.Tensor, ...]:
+    """Norm-decomposed fused matcher: ``match_flow_fused``'s (idx, ey, ex,
+    pmax) contract without marginal or gate. f1 ([B,] H, W, K), f2 ([B,]
+    H+maxh-1, W+maxw-1, K); ``dtype`` is the feature storage type (f32 or
+    bf16), norms and logits stay f32 and come from the stored values.
+    Differs from match_flow_fused only at near-exact cost ties, where the
+    decomposition rounds apart and the dx-major visit order breaks ties
+    differently. ``block_rows`` is accepted for signature parity with the
+    reference and has no effect. CUDA tensors go through kernel B2 (counted
+    in ``match_flow_fast.launches``; it takes K <= 32, and raises
+    RuntimeError where the window's (8 + maxh - 1) x (32 + maxw - 1) f2
+    halo does not fit in shared memory), CPU tensors through
+    ``match_flow_fast_plain``."""
+    squeeze = f1.ndim == 3
+    if squeeze:
+        f1, f2 = f1[None], f2[None]
+    B = f1.shape[0]
+    H = f2.shape[1] - maxh + 1
+    W = f2.shape[2] - maxw + 1
+    if tuple(f1.shape[:3]) != (B, H, W) or f2.shape[0] != B \
+            or f2.shape[3] != f1.shape[3]:
+        raise ValueError(f"shapes {tuple(f1.shape)} / {tuple(f2.shape)} do "
+                         f"not match a {maxh}x{maxw} window")
+    if f1.is_cuda:
+        outs = _match_flow_fast_cuda(f1, f2, maxh, maxw, dtype)
+    else:
+        outs = match_flow_fast_plain(f1, f2, maxh, maxw, dtype)
+    if squeeze:
+        outs = tuple(a[0] for a in outs)
+    return outs
+
+
+match_flow_fast.launches = 0

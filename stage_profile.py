@@ -1,21 +1,23 @@
 #!/usr/bin/env python3
-"""Where one step of the PyTorch port's online program spends its time, on
-one NVIDIA card.
+"""Where the PyTorch port's main paths spend their time, on one NVIDIA card.
 
 Run from the repository root, on a machine with a CUDA card and nvcc:
 
     python3 stage_profile.py
 
 It runs ``BatchedDepthEstimator`` at the car_model's full width, B=128, on
-``chip_smoke.forward_frames`` pairs, in fast mode and in 'warp' mode, and
-reports for each:
+``chip_smoke.forward_frames`` pairs, in fast mode and in 'warp' mode; the
+'liu' ground-truth solve at BASELINE config2 (B=8, 192x256x3, 5/1/40 on
+``chip_smoke.shifted_textures``); and the matching core (B=128). For each
+it reports:
   * the step time without instrumentation (CUDA events, median of 5);
   * per-stage times: each stage's function is wrapped so that it waits for
     the card before and after it runs (``torch.cuda.synchronize``), and the
     host clock is read around it; 3 instrumented steps, mean per step.
     Stages nest (ego-motion holds corners, LK and RANSAC);
   * a ``torch.profiler`` trace of one step: the 12 entries with the most
-    device time, with their call counts.
+    device time, with their call counts, and the sum of the device-side
+    events' time (the card's busy time in that step).
 TF32 is off, as in chip_smoke.py. The report goes to
 chiprun_out/stage_profile.json.
 """
@@ -29,11 +31,45 @@ from collections import defaultdict
 
 import torch
 
-from chip_smoke import B_MAIN, CAR_MODEL, FAST, card_line, cuda_ms, forward_frames
+from chip_smoke import (B_MAIN, CAR_MODEL, FAST, GT_B, GT_H, GT_SCHEDULE,
+                        GT_SHIFT, GT_W, card_line, cuda_ms, forward_frames,
+                        matching_core, shifted_textures)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 REPORT = os.path.join(ROOT, "chiprun_out", "stage_profile.json")
 REPS = 3
+
+
+def timed(totals, name, fn):
+    """fn wrapped so that it waits for the card before and after it runs,
+    with its host time added to totals[name] (ms)."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        totals[name] += (time.perf_counter() - t) * 1e3
+        return out
+    return run
+
+
+def wrap(targets, totals):
+    """Wrap each (object, attribute, stage name) in a synchronising timer.
+    Returns a function that undoes the wrapping."""
+    saved = []
+    for obj, attr, name in targets:
+        fn = getattr(obj, attr)
+        saved.append((obj, attr, obj.__dict__.get(attr)))
+        setattr(obj, attr, timed(totals, name, fn))
+
+    def undo():
+        for obj, attr, old in reversed(saved):
+            if old is None:
+                delattr(obj, attr)
+            else:
+                setattr(obj, attr, old)
+    return undo
 
 
 def instrument(est, totals):
@@ -44,17 +80,6 @@ def instrument(est, totals):
     from depth_estimation_tpu_torch.geometry3d import egomotion as ego
     from depth_estimation_tpu_torch.geometry3d import undistort as undist
     from depth_estimation_tpu_torch.ops import extract, matching
-
-    def timed(name, fn):
-        @functools.wraps(fn)
-        def run(*args, **kwargs):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            totals[name] += (time.perf_counter() - t) * 1e3
-            return out
-        return run
 
     targets = [
         (api_batched.BatchedDepthEstimator, "_step", "step"),
@@ -75,41 +100,54 @@ def instrument(est, totals):
         (matching, "match_flow_fused", "match"),
         (extract, "enlarge_mask_batched", "masks.enlarge"),
     ]
-    saved = []
-    for obj, attr, name in targets:
-        fn = getattr(obj, attr)
-        saved.append((obj, attr, obj.__dict__.get(attr)))
-        setattr(obj, attr, timed(name, fn))
-
-    def undo():
-        for obj, attr, old in reversed(saved):
-            if old is None:
-                delattr(obj, attr)
-            else:
-                setattr(obj, attr, old)
-    return undo
+    return wrap(targets, totals)
 
 
-def profile_mode(name, knobs, geom, params, frames, dev):
+def instrument_gt(totals):
+    """Stages of the liu solve (flow/celiu.py): the pyramids, each IRLS
+    level, and inside it the derivatives, B4 and the noise estimate; the
+    bilinear warps (inside and between levels)."""
+    from depth_estimation_tpu_torch.flow import celiu
+    warp = celiu._WARPERS["bilinear"]        # the solver looks warps up here
+    celiu._WARPERS["bilinear"] = timed(totals, "warps", warp)
+    undo = wrap([(celiu, "build_pyramid", "pyramids"),
+                 (celiu, "smooth_flow_sor", "level"),
+                 (celiu, "get_dxs", "level.get_dxs"),
+                 (celiu, "sor_redblack", "level.sor_B4"),
+                 (celiu, "laplacian_noise", "level.noise")], totals)
+
+    def undo_all():
+        undo()
+        celiu._WARPERS["bilinear"] = warp
+    return undo_all
+
+
+def instrument_core(totals):
+    """Stages of the matching core (chip_smoke.matching_core)."""
+    from depth_estimation_tpu_torch.data import images
+    from depth_estimation_tpu_torch.models import flow as flow_model
+    from depth_estimation_tpu_torch.ops import matching
+    return wrap([(images, "scale_batched_device", "resize"),
+                 (flow_model.FlowModel, "features", "trunk"),
+                 (matching, "match_flow_fast", "match_B2")], totals)
+
+
+def profile_fn(fn, instrument_fn):
+    """Uninstrumented time (CUDA events, median of 5), per-stage times
+    (REPS instrumented runs, mean), and a torch.profiler top list of one
+    run."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    from depth_estimation_tpu_torch import api_batched
-    from depth_estimation_tpu_torch.geometry3d.calibration import ARDRONE
-    t1, t2 = frames
-    est = api_batched.BatchedDepthEstimator(geom, params, ARDRONE, head="mean",
-                                            device=dev, **knobs)
-    u1, feats1 = est._prep(t1)
-    step_ms = cuda_ms(lambda: est._step(u1, feats1, t2))
-
+    step_ms = cuda_ms(fn)
     totals = defaultdict(float)
-    undo = instrument(est, totals)
+    undo = instrument_fn(totals)
     for _ in range(REPS):
-        est._step(u1, feats1, t2)
+        fn()
     undo()
     stages = {k: v / REPS for k, v in sorted(totals.items())}
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        est._step(u1, feats1, t2)
+        fn()
         torch.cuda.synchronize()
     # the profiler's own buffer events carry device time too; leave them out
     events = [e for e in prof.key_averages()
@@ -119,7 +157,23 @@ def profile_mode(name, knobs, geom, params, frames, dev):
     top = sorted(events, key=dev_ms, reverse=True)[:12]
     top = [dict(name=e.key[:120], self_device_ms=dev_ms(e), calls=e.count)
            for e in top]
-    return dict(step_ms=step_ms, stages_ms=stages, profiler_top=top)
+    # device busy time: the device-side events (kernels, copies) only, so
+    # that an op and the kernels it launched are not counted twice
+    busy = sum(dev_ms(e) for e in events
+               if getattr(e, "device_type", None) == DeviceType.CUDA)
+    return dict(step_ms=step_ms, stages_ms=stages, profiler_top=top,
+                profiler_device_ms_sum=busy)
+
+
+def profile_mode(name, knobs, geom, params, frames, dev):
+    from depth_estimation_tpu_torch import api_batched
+    from depth_estimation_tpu_torch.geometry3d.calibration import ARDRONE
+    t1, t2 = frames
+    est = api_batched.BatchedDepthEstimator(geom, params, ARDRONE, head="mean",
+                                            device=dev, **knobs)
+    u1, feats1 = est._prep(t1)
+    return profile_fn(lambda: est._step(u1, feats1, t2),
+                      lambda totals: instrument(est, totals))
 
 
 def main() -> int:
@@ -137,11 +191,29 @@ def main() -> int:
     frames = forward_frames(torch.Generator(device=dev).manual_seed(1),
                             B_MAIN, dev)
     report = {"card": card, "B": B_MAIN}
-    for name, knobs in (("fast", FAST), ("warp", dict(compensation="warp"))):
-        r = profile_mode(name, knobs, geom, params, frames, dev)
+    from depth_estimation_tpu_torch.flow import celiu
+    from depth_estimation_tpu_torch.models import flow as flow_model
+    gt1, gt2 = shifted_textures(torch.Generator(device=dev).manual_seed(3),
+                                GT_B, GT_H, GT_W, GT_SHIFT, dev)
+    geom_c, trunk = mio.load_filter(CAR_MODEL, device=dev)
+    model = flow_model.FlowModel(geom_c, trunk)
+    runs = [(f"{name} mode, B={B_MAIN}", name, functools.partial(
+        profile_mode, name, knobs, geom, params, frames, dev))
+        for name, knobs in (("fast", FAST), ("warp", dict(compensation="warp")))]
+    runs += [
+        (f"liu GT config2, B={GT_B} {GT_H}x{GT_W}x3", "gt_liu_config2",
+         lambda: profile_fn(lambda: celiu.coarse2fine_flow_batched(
+             gt1, gt2, **GT_SCHEDULE), instrument_gt)),
+        (f"matching core, B={B_MAIN}", "matching_core",
+         lambda: profile_fn(lambda: matching_core(model, *frames),
+                            instrument_core)),
+    ]
+    for title, name, run in runs:
+        r = run()
         report[name] = r
-        print(f"[{card}] {name} mode, B={B_MAIN}: step {r['step_ms']:.1f} ms "
-              f"(CUDA events, median of 5)", flush=True)
+        print(f"[{card}] {title}: {r['step_ms']:.1f} ms (CUDA events, median "
+              f"of 5); profiler device time {r['profiler_device_ms_sum']:.1f} "
+              f"ms", flush=True)
         for k, v in r["stages_ms"].items():
             print(f"  {k:32s} {v:9.2f} ms", flush=True)
         print("  profiler, most device time (ms, calls):", flush=True)

@@ -2,6 +2,8 @@
 ego-motion resolutions), its packed and pipelined outputs, the pairs
 pipeline and the fast-mode knobs."""
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -29,7 +31,8 @@ def test_depth_estimator_matches_jax(ego_resolution):
     seq = parallax_frames(np.random.RandomState(4), H * s, W * s, n=3,
                           lo=s, hi=5 * s)
     ours = tapi.DepthEstimator(tg, params, tc, ego_resolution=ego_resolution,
-                               ransac_noise=ransac_noise(64, NPTS))
+                               ransac_noise=ransac_noise(64, NPTS),
+                               device="cpu")
     ref = japi.DepthEstimator(jg, to_jax(params), jc,
                               ego_resolution=ego_resolution)
     ours.reset(seq[0])
@@ -50,13 +53,13 @@ def test_packed_and_pipelined_stream_follow_next_frame_depth():
     _, tc = calibrations(H, W, f=100.0, max_points=NPTS)
     params = trunk_params(1)
     seq = parallax_frames(np.random.RandomState(4), H, W, n=4)
-    direct = tapi.DepthEstimator(tg, params, tc)
+    direct = tapi.DepthEstimator(tg, params, tc, device="cpu")
     direct.reset(seq[0])
     want = []
     for f in seq[1:]:
         _, xf, m = direct.next_frame_depth(f)
         want.append(np.stack([xf, m]).astype(np.float16))
-    est = tapi.DepthEstimator(tg, params, tc)
+    est = tapi.DepthEstimator(tg, params, tc, device="cpu")
     est.reset(seq[0])
     got = []
     with est.stream(lag=2, fetch_threads=2) as stream:
@@ -77,7 +80,8 @@ def test_make_batched_pipeline_matches_jax():
     frames = case["frames"]
     ours = tapi_b.make_batched_pipeline(case["tg"], case["tc"],
                                         compensation="warp_banded",
-                                        ransac_noise=ransac_noise(64, NPTS))
+                                        ransac_noise=ransac_noise(64, NPTS),
+                                        device="cpu")
     ref = japi.make_batched_pipeline(case["jg"], case["jc"],
                                      compensation="warp_banded")
     a = [x.numpy() for x in ours(case["params"], frames[0], frames[1])]
@@ -90,7 +94,8 @@ def test_make_batched_pipeline_matches_jax():
     assert sel.mean() > 0.3
     assert np.abs(a[0] - b[0])[sel].max() <= ATOL
     with pytest.raises(TypeError):
-        tapi_b.make_batched_pipeline(case["tg"], case["tc"], not_a_knob=1)
+        tapi_b.make_batched_pipeline(case["tg"], case["tc"], not_a_knob=1,
+                                     device="cpu")
 
 
 FAST_KNOBS = dict(compensation="decode", match_dtype=torch.bfloat16,
@@ -133,13 +138,38 @@ def test_fast_mode_shared_state_matches_jax():
         assert d.max() <= ATOL
 
 
+def test_entry_points_default_to_the_card_and_refuse_the_cpu(monkeypatch):
+    """With no device named, every entry point asks for the card; where
+    torch sees none (as here, or forced below) it raises instead of
+    carrying on on the CPU."""
+    from depth_estimation_tpu_torch.models import io as tio
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    case = pipeline_case()
+    params = trunk_params(1)
+    makers = [
+        lambda: tapi.DepthEstimator(case["tg"], params, case["tc"]),
+        lambda: tapi_b.BatchedDepthEstimator(case["tg"], params, case["tc"]),
+        lambda: tapi_b.make_batched_pipeline(case["tg"], case["tc"]),
+        lambda: tio.load_filter(os.path.join(os.path.dirname(__file__), "..",
+                                             "examples", "car_model")),
+    ]
+    for make in makers:
+        with pytest.raises(RuntimeError, match="cuda"):
+            make()
+    est = tapi_b.BatchedDepthEstimator(case["tg"], params, case["tc"],
+                                       device="cpu")
+    assert est.device.type == "cpu" and est.trunk.layer1.weight.device.type == "cpu"
+
+
 def test_estimator_rejects_bad_knobs():
     case = pipeline_case()
     for bad in (dict(head="median"), dict(compensation="none"),
                 dict(corner_selector="random"), dict(ego_downsample=3),
                 dict(match_block=0)):
         with pytest.raises(ValueError):
-            tapi_b.BatchedDepthEstimator(case["tg"], None, case["tc"], **bad)
-    est = tapi_b.BatchedDepthEstimator(case["tg"], case["params"], case["tc"])
+            tapi_b.BatchedDepthEstimator(case["tg"], None, case["tc"],
+                                         device="cpu", **bad)
+    est = tapi_b.BatchedDepthEstimator(case["tg"], case["params"], case["tc"],
+                                       device="cpu")
     with pytest.raises(RuntimeError):
         est.next_frames(case["frames"][1])

@@ -134,7 +134,7 @@ def test_load_model_matches_jax_and_rejects_other_versions(tmp_path):
 
 
 def test_trunk_matches_jax_on_car_model():
-    geom, trunk = tio.load_filter(CAR_MODEL)
+    geom, trunk = tio.load_filter(CAR_MODEL, device="cpu")
     jg, _, jparams, _ = jio.load_model(CAR_MODEL)
     rng = np.random.RandomState(0)
     img = rng.rand(2, 180, 320, 3).astype(np.float32)

@@ -1,9 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch twins, on the card.
 
-Shapes here are chosen to reach the kernels' edges rather than the online
-program's shapes (``chip_smoke.py`` covers those): ragged output tiles,
+Shapes here are chosen to reach the kernels' edges rather than the main
+paths' shapes (``chip_smoke.py`` covers those): ragged output tiles,
 channel counts between the compiled sizes, non-square and 16-row windows,
-bands of 0 and 1, taps on the image border. Every test skips without a
+bands of 0 and 1, taps on the image border, 1x1 and odd SOR images, 0, 1
+and 40 SOR iterations, leading batch dims. Every test skips without a
 CUDA card. This file imports no jax, so it also runs where jax is absent:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -108,3 +109,86 @@ def test_warp_banded_kernel_matches_plain(dev, band, C, dt):
     assert got.dtype == torch.float32 and got.shape == ref.shape
     assert torch.isfinite(got).all()
     assert (got - ref).abs().max().item() <= 1e-6
+
+
+def _sor_planes(dev, lead, H, W, seed):
+    """Random well-conditioned SOR planes as the solver builds them: zero
+    boundary weights, denominators above the weights' sum."""
+    from depth_estimation_tpu_torch.flow import celiu
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shape = tuple(lead) + (H, W)
+
+    def rnd():
+        return torch.rand(shape, generator=g, device=dev)
+    phi = rnd() + 0.1
+    alpha = 0.3
+    w = celiu._neighbor_weights(phi)
+    coeff = alpha * (w[0] + w[1] + w[2] + w[3])
+    return (*w, rnd() + 0.5 + coeff, rnd() + 0.5 + coeff,
+            torch.randn(shape, generator=g, device=dev),
+            torch.randn(shape, generator=g, device=dev),
+            (rnd() - 0.5) * 0.1), alpha
+
+
+@pytest.mark.parametrize("lead,H,W", [((), 1, 1), ((1,), 2, 3), ((8,), 13, 22),
+                                      ((2, 3), 17, 9), ((1,), 192, 256)])
+@pytest.mark.parametrize("n_sor", [0, 1, 40])
+def test_sor_redblack_kernel_matches_plain(dev, lead, H, W, n_sor):
+    from depth_estimation_tpu_torch.flow import celiu, sor_kernel
+    planes, alpha = _sor_planes(dev, lead, H, W, seed=H * 100 + W + n_sor)
+    n0 = sor_kernel.sor_redblack.launches
+    du, dv = sor_kernel.sor_redblack(*planes, alpha=alpha, n_sor=n_sor)
+    assert sor_kernel.sor_redblack.launches == n0 + 1
+    ref = celiu.sor_plain(*planes, alpha=alpha, n_sor=n_sor)
+    torch.cuda.synchronize()
+    assert du.shape == dv.shape == tuple(lead) + (H, W)
+    assert torch.isfinite(du).all() and torch.isfinite(dv).all()
+    # same operations in the same order with rounded intrinsics: equal
+    assert (du - ref[0]).abs().max().item() <= 1e-6
+    assert (dv - ref[1]).abs().max().item() <= 1e-6
+
+
+def test_sor_redblack_rejects_mismatched_planes(dev):
+    from depth_estimation_tpu_torch.flow import sor_kernel
+    planes, alpha = _sor_planes(dev, (2,), 5, 6, seed=0)
+    with pytest.raises(ValueError):
+        sor_kernel.sor_redblack(*planes[:-1], planes[-1][:, :4], alpha=alpha,
+                                n_sor=3)
+    with pytest.raises(ValueError):
+        sor_kernel.sor_redblack(*planes[:-1], planes[-1].cpu(), alpha=alpha,
+                                n_sor=3)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K", [3, 10, 17])
+@pytest.mark.parametrize("maxh,maxw", [(4, 4), (6, 4), (5, 3), (9, 13),
+                                       (16, 16), (20, 7)])
+def test_match_fast_kernel_matches_plain(dev, maxh, maxw, K, dt):
+    H, W = 13, 37                      # ragged against the 8x32 output tile
+    f1, f2 = _features(dev, H, W, K, maxh, maxw, seed=maxh * 100 + K + 7)
+    n0 = matching.match_flow_fast.launches
+    got = matching.match_flow_fast(f1, f2, maxh, maxw, 8, dt)
+    assert matching.match_flow_fast.launches == n0 + 1
+    ref = matching.match_flow_fast_plain(f1, f2, maxh, maxw, dt)
+    torch.cuda.synchronize()
+    assert got[0].dtype == torch.int32 and tuple(got[0].shape) == (2, H, W)
+    # same arithmetic in the same order; only the exp implementations
+    # differ, so WTA indices agree except at near-ties of the logit
+    costs = matching.match_ssd(f1, f2, maxh, maxw, dt)
+    top2 = torch.topk(-costs, 2, dim=-1).values
+    flip = got[0] != ref[0]
+    assert bool(((top2[..., 0] - top2[..., 1])[flip] < 1e-4).all())
+    for a, b in zip(got[1:], ref[1:]):
+        assert torch.isfinite(a).all()
+        assert (a - b).abs().max().item() <= 1e-5
+
+
+def test_match_fast_kernel_rejects_what_it_does_not_take(dev):
+    f1, f2 = _features(dev, 8, 8, 33, 4, 4, seed=0)
+    with pytest.raises(ValueError):
+        matching.match_flow_fast(f1, f2, 4, 4)            # > 32 channels
+    f1, f2 = _features(dev, 8, 8, 32, 64, 64, seed=0)
+    n0 = matching.match_flow_fast.launches
+    with pytest.raises(RuntimeError, match="unsupported configuration"):
+        matching.match_flow_fast(f1, f2, 64, 64)          # halo > shared memory
+    assert matching.match_flow_fast.launches == n0

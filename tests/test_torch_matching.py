@@ -138,3 +138,88 @@ def test_enlarge_mask_matches_jax():
     np.testing.assert_array_equal(
         textract.enlarge_mask(torch.from_numpy(m[0]), 3, 6).numpy(),
         np.asarray(jextract.enlarge_mask(jnp.asarray(m[0]), 3, 6)))
+
+
+# ---------------------------------------------------------------------------
+# Kernel B2: the norm-decomposed matcher's plain twin against the Pallas
+# kernel in interpret mode
+# ---------------------------------------------------------------------------
+
+FAST_SHAPE = (2, 10, 12, 5)     # B, H, W, K
+FAST_WINDOW = (6, 4)            # non-square: the dx-major visit order shows
+# WTA index: the decomposition rounds near ties apart, so equal on >= 99% of
+# pixels. ey/ex/pmax: both packages round the features to the storage type
+# once and do the arithmetic in f32; only the summation order of the norms
+# and cross terms differs, so both storage types are held at 1e-5 (bf16
+# storage changes the inputs, not the f32 arithmetic on them).
+FAST_TOL = {"f32": 1e-5, "bf16": 1e-5}
+
+
+def _fast_inputs(scale=0.5, seed=8):
+    B, Hf, Wf, Kf = FAST_SHAPE
+    maxh, maxw = FAST_WINDOW
+    rng = np.random.RandomState(seed)
+    f1 = (scale * rng.randn(B, Hf, Wf, Kf)).astype(np.float32)
+    f2 = (scale * rng.randn(B, Hf + maxh - 1, Wf + maxw - 1, Kf)).astype(np.float32)
+    return f1, f2
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_fast_plain_matches_jax(dt):
+    f1, f2 = _fast_inputs()
+    maxh, maxw = FAST_WINDOW
+    ref = [np.asarray(o) for o in jmatching.match_flow_fast(
+        jnp.asarray(f1), jnp.asarray(f2), maxh, maxw, 8, True, DTYPES[dt][0])]
+    n0 = tmatching.match_flow_fast.launches
+    ours = [o.numpy() for o in tmatching.match_flow_fast(
+        torch.from_numpy(f1), torch.from_numpy(f2), maxh, maxw, 8,
+        DTYPES[dt][1])]
+    assert tmatching.match_flow_fast.launches == n0     # CPU: plain twin
+    assert ours[0].dtype == np.int32 and ours[0].shape == FAST_SHAPE[:3]
+    assert (ours[0] == ref[0]).mean() >= 0.99
+    for a, b in zip(ours[1:], ref[1:]):                 # ey, ex, pmax
+        np.testing.assert_allclose(a, b, rtol=0, atol=FAST_TOL[dt])
+    # unbatched inputs give the first item
+    one = tmatching.match_flow_fast(torch.from_numpy(f1[0]),
+                                    torch.from_numpy(f2[0]), maxh, maxw, 8,
+                                    DTYPES[dt][1])
+    for a, b in zip(one, ours):
+        np.testing.assert_array_equal(a.numpy(), b[0])
+
+
+def test_fast_plain_dx_major_tie_break():
+    """Exact ties: the first cell in dx-major order wins (not B1's dy-major
+    first), unless the middle cell ties the best."""
+    maxh, maxw = FAST_WINDOW
+    f1 = np.zeros((1, 1, 1, 2), np.float32)
+    f2 = np.full((1, maxh, maxw, 2), 5.0, np.float32)
+    f2[0, 0, 3] = 0.0          # cell (dy=0, dx=3): d = 3, dx-major rank 18
+    f2[0, 2, 0] = 0.0          # cell (dy=2, dx=0): d = 8, dx-major rank 2
+    args = (torch.from_numpy(f1), torch.from_numpy(f2), maxh, maxw)
+    assert tmatching.match_flow_fast(*args)[0].item() == 8
+    assert tmatching.match_flow_fused(*args)[0].item() == 3
+    ref = jmatching.match_flow_fast(jnp.asarray(f1), jnp.asarray(f2), maxh,
+                                    maxw, 8, True)
+    assert int(np.asarray(ref[0]).ravel()[0]) == 8
+    f2[0, 2, 1] = 0.0          # the middle cell (dy=2, dx=1) ties: it wins
+    assert tmatching.match_flow_fast(*args)[0].item() == 2 * maxw + 1
+
+
+def test_fast_plain_large_magnitude_features():
+    """Features scaled x30 (costs in the tens of thousands): the running-max
+    softmax keeps every output finite, and the twin still follows the fused
+    matcher (the check the JAX package holds its kernel to)."""
+    f1, f2 = _fast_inputs(scale=30.0, seed=13)
+    maxh, maxw = FAST_WINDOW
+    t1, t2 = torch.from_numpy(f1), torch.from_numpy(f2)
+    fast = tmatching.match_flow_fast(t1, t2, maxh, maxw)
+    for o in fast[1:]:
+        assert torch.isfinite(o).all()
+    ref = tmatching.match_flow_fused(t1, t2, maxh, maxw)
+    assert (fast[0] == ref[0]).float().mean().item() > 0.99
+    for a, b in zip(fast[1:], ref[1:]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-3)
+    jref = jmatching.match_flow_fast(jnp.asarray(f1), jnp.asarray(f2), maxh,
+                                     maxw, 8, True)
+    for a, b in zip(fast[1:], jref[1:]):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-3)

@@ -124,7 +124,7 @@ def run_batched_both(case, share_state=False, **knobs):
                          torch.float32: jnp.float32}[knobs[k]]
     noise = ransac_noise(knobs.get("ransac_samples", 64), case["n_points"])
     ours = tapi.BatchedDepthEstimator(case["tg"], case["params"], case["tc"],
-                                      ransac_noise=noise, **knobs)
+                                      ransac_noise=noise, device="cpu", **knobs)
     ref = japi.BatchedDepthEstimator(case["jg"], to_jax(case["params"]),
                                      case["jc"], **jknobs)
     if share_state:
