@@ -12,7 +12,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
   3. kernels vs their plain PyTorch versions on the card, at their main
      paths' shapes: B1 and B3 at the online program's (B=8, f32 and bf16
      storage), B4 at the ground truth's finest level (B=8, 192x256, 40
-     iterations), B2 at the matching core's (B=8, f32 and bf16);
+     iterations), B2 at the matching core's (B=8, f32 and bf16), B5 at the
+     same (B=8, f32);
   4. the online program end to end at the car_model's full width (ARDRONE
      640x480 uint8 frames of a forward camera step -> 320x180, trunk
      (3,5,5,8),(8,12,12,10), 16x16 window), B=128, in fast mode, 'warp'
@@ -29,7 +30,19 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
   7. the matching core (bench.py's secondary program): uint8 640x480
      frames, B=128 -> 320x180 -> trunk -> crop -> B2 in bf16 -> the depth
      rule, with B2's launches read around it;
-  8. timing: CUDA events after warm-up, median of 5.
+  8. the throughput matching core: the same with B5 (f32) as the matcher,
+     B5's launches read around it, its WTA held against B2's (f32) on the
+     same features;
+  9. the other model families at BASELINE widths, random weights from a
+     seed: config3's multiscale pyramid (180x320, trunk (3,16,16,10), 8x8
+     window, ratios 1,2,4) through the staged decode at B=64 in f16 and f32
+     storage, decode_full against forward_full's argmax on the card (B=4)
+     and one pair card vs CPU; config4's radial net (forward-motion frames
+     warped to 200x200 polar images, hWin 15) through flow_batch at B=64,
+     one pair card vs CPU, and one cartesian frame through
+     cartesian2polar, the net and flow2depth; the version2 net (180x320,
+     17x17x32 trunk, 17x17 window), one pair card vs CPU;
+ 10. timing: CUDA events after warm-up, median of 5.
 
 TF32 is switched off for the whole run (cuDNN convolutions and matmuls run
 in full f32), so that the card computes what the CPU reference computes.
@@ -96,6 +109,25 @@ GT_SCHEDULE = dict(alpha=0.005, ratio=0.75, min_width=30, n_outer=5,
                    n_inner=1, n_sor=40)
 GT_B, GT_H, GT_W, GT_SHIFT = 8, 192, 256, 2
 GT_SOR_CALLS = 56          # 7 levels, n_outer + k IRLS steps at level k
+# the other model families at BASELINE widths (benchmarks/bench_configs.py
+# :136-174): config3's multiscale pyramid and config4's radial net, random
+# weights from a seed (the repo holds no trained checkpoint of either)
+C3_GEOMETRY = dict(hImg=180, wImg=320, layers=((3, 16, 16, 10),), maxh=8,
+                   maxw=8, multiscale=True, ratios=(1, 2, 4))
+C3_B, C3_CHECK_B = 64, 4
+C4_B, C4_H, C4_W, C4_HWIN = 64, 200, 200, 15
+C4_LAYERS = ((3, 5, 5, 10), "tanh", (10, 5, 5, 10))
+C4_CART = (240, 320)        # the cartesian frames warped to polar
+# card vs CPU (and B5 vs B2): the share of WTA indices that must be equal
+# (they may part only where two cells' costs are within rounding), and the
+# largest cost difference over the largest cost (cuDNN's and the CPU's f32
+# convolutions sum in other orders). The radial net's minimum costs are
+# differences of nearly equal features through two conv layers, so their
+# rounding is larger against their own scale: held at 1e-4 (9.7e-6 read on
+# an H100).
+TOL_AGREE = 0.999
+TOL_COST_REL = 1e-5
+TOL_RADIAL_COST_REL = 1e-4
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, FP32 FLOP/s outside
 # the tensor cores
 PEAK_BYTES = 3.35e12
@@ -253,8 +285,21 @@ def phase_kernels(dev, report):
         check(max(errs[:2]) <= TOL_FLOW_PX and errs[2] <= TOL_PROB,
               f"B2 ey/ex/pmax error {errs}")
         b2_err = max(b2_err, max(errs))
+    # B5 at the matching core's shape, f32 (its only storage type), against
+    # its twin on the same norms
+    from depth_estimation_tpu_torch.ops import matching_experimental as mexp
+    got = mexp.match_flow_throughput(f1, f2, 16, 16)
+    ref = mexp.match_flow_throughput_plain(*mexp._norms(f1, f2), 16, 16)
+    torch.cuda.synchronize()
+    flips = (got[0] != ref[0]).float().mean().item()
+    errs5 = [(a - b).abs().max().item() for a, b in zip(got[1:], ref[1:])]
+    print(f"B5 float32: idx mismatch {flips:.2e}, max err ey {errs5[0]:.2e} "
+          f"ex {errs5[1]:.2e} pmax {errs5[2]:.2e}", flush=True)
+    check(flips <= TOL_FLIP, f"B5 idx mismatch {flips}")
+    check(max(errs5[:2]) <= TOL_FLOW_PX and errs5[2] <= TOL_PROB,
+          f"B5 ey/ex/pmax error {errs5}")
     errs = dict(match_fused=b1_err, warp_banded=b3_err, sor_redblack=b4_err,
-                match_fast=b2_err)
+                match_fast=b2_err, match_throughput=max(errs5))
     report["kernel_vs_plain"] = errs
     return errs
 
@@ -535,22 +580,27 @@ def phase_gt(dev, geom, report):
 
 
 @torch.no_grad()
-def matching_core(model, frames1, frames2):
+def matching_core(model, frames1, frames2, matcher="fast"):
     """bench.py's matching core with the port: normalise the uint8 frames,
     resize to the working size, run the trunk, crop the reference branch,
-    match with B2 on bf16 storage, and apply the x-flow depth rule."""
+    match, and apply the x-flow depth rule. ``matcher``: "fast" is B2 on
+    bf16 storage (bench.py's program), "throughput" is B5 (f32)."""
     from depth_estimation_tpu_torch.api_batched import depth_from_xflow
     from depth_estimation_tpu_torch.data import images
     from depth_estimation_tpu_torch.models.flow import crop_features_center
-    from depth_estimation_tpu_torch.ops import matching
+    from depth_estimation_tpu_torch.ops import matching, matching_experimental
     g = model.geometry
     small1 = images.scale_batched_device(frames1.float() / 255.0, g.hImg, g.wImg)
     small2 = images.scale_batched_device(frames2.float() / 255.0, g.hImg, g.wImg)
     f1 = crop_features_center(g, model.features(small1))
     f2 = model.features(small2)
-    idx, ey, ex, pmax = matching.match_flow_fast(f1, f2, g.maxh, g.maxw, 32,
-                                                 torch.bfloat16)
-    return ex, ey, depth_from_xflow(ex, ex.shape[-1]), pmax, (f1, f2)
+    if matcher == "fast":
+        idx, ey, ex, pmax = matching.match_flow_fast(f1, f2, g.maxh, g.maxw, 32,
+                                                     torch.bfloat16)
+    else:
+        idx, ey, ex, pmax = matching_experimental.match_flow_throughput(
+            f1, f2, g.maxh, g.maxw)
+    return idx, ex, ey, depth_from_xflow(ex, ex.shape[-1]), pmax, (f1, f2)
 
 
 def phase_matching_core(dev, card, report):
@@ -564,7 +614,7 @@ def phase_matching_core(dev, card, report):
     t1, t2 = forward_frames(torch.Generator(device=dev).manual_seed(4),
                             B_MAIN, dev)
     matching.match_flow_fast.launches = 0
-    ex, ey, depth, pmax, (f1, f2) = matching_core(model, t1, t2)
+    _, ex, ey, depth, pmax, (f1, f2) = matching_core(model, t1, t2)
     torch.cuda.synchronize()
     launches = matching.match_flow_fast.launches
     shape = (B_MAIN, geom.hImg - geom.maxh + 1 - geom.hKernel + 1,
@@ -597,6 +647,200 @@ def phase_matching_core(dev, card, report):
     return launches
 
 
+def phase_throughput_core(dev, card, report):
+    """The matching core at B=128 through B5 (f32), its launches read around
+    one run; B5's WTA beside B2's (f32) on the same features; frame-pairs/s."""
+    from depth_estimation_tpu_torch.models import flow as flow_model
+    from depth_estimation_tpu_torch.models import io as mio
+    from depth_estimation_tpu_torch.ops import matching
+    from depth_estimation_tpu_torch.ops import matching_experimental as mexp
+    geom, trunk = mio.load_filter(CAR_MODEL, device=dev)
+    model = flow_model.FlowModel(geom, trunk)
+    t1, t2 = forward_frames(torch.Generator(device=dev).manual_seed(5),
+                            B_MAIN, dev)
+    mexp.match_flow_throughput.launches = 0
+    idx, ex, ey, depth, pmax, (f1, f2) = matching_core(model, t1, t2,
+                                                       "throughput")
+    torch.cuda.synchronize()
+    launches = mexp.match_flow_throughput.launches
+    shape = (B_MAIN, geom.hImg - geom.maxh + 1 - geom.hKernel + 1,
+             geom.wImg - geom.maxw + 1 - geom.wKernel + 1)
+    check(tuple(ex.shape) == tuple(depth.shape) == shape,
+          f"throughput core shapes {ex.shape} {depth.shape}")
+    check(bool(torch.isfinite(ex).all() and torch.isfinite(ey).all()
+               and torch.isfinite(pmax).all()), "throughput core non-finite")
+    check(launches == 1, f"B5 launched {launches} times in one run")
+    fast = matching.match_flow_fast(f1, f2, geom.maxh, geom.maxw, 32,
+                                    torch.float32)
+    agree = (idx == fast[0]).float().mean().item()
+    dex = (ex - fast[2]).abs()
+    ms = cuda_ms(lambda: matching_core(model, t1, t2, "throughput"))
+    fps = B_MAIN / (ms / 1e3)
+    print(f"throughput core: B={B_MAIN} uint8 640x480 -> {geom.hImg}x"
+          f"{geom.wImg} -> trunk -> B5 f32, {launches} B5 launch; median "
+          f"|x-flow| {ex.abs().median().item():.3f} px; B5 vs B2 (f32) on the "
+          f"same features: WTA equal on {agree:.6f}, x-flow diff max "
+          f"{dex.max().item():.2e} px", flush=True)
+    print(f"[{card}] throughput core: {ms:.1f} ms per B={B_MAIN} step = "
+          f"{fps:.1f} frame-pairs/s", flush=True)
+    report["throughput_core"] = dict(launches_match_throughput=launches,
+                                     ms=ms, fps=fps, b5_vs_b2_wta_agree=agree,
+                                     b5_vs_b2_xflow_max=dex.max().item())
+    check(agree >= TOL_AGREE, f"B5 vs B2 WTA agreement {agree}")
+    return launches
+
+
+def working_frames(seed, B, h, w, dev):
+    """B pairs of forward_frames, normalised and resized to h x w."""
+    from depth_estimation_tpu_torch.data import images
+    t1, t2 = forward_frames(torch.Generator(device=dev).manual_seed(seed), B,
+                            dev)
+    return (images.scale_batched_device(t1.float() / 255.0, h, w),
+            images.scale_batched_device(t2.float() / 255.0, h, w))
+
+
+@torch.no_grad()
+def phase_multiscale(dev, card, report):
+    """BASELINE config3 at full width: the staged decode at B=64 in f16 and
+    f32 storage (timed), decode_full against forward_full's argmax on the
+    card at B=4, and one pair card vs CPU."""
+    from depth_estimation_tpu_torch import codecs
+    from depth_estimation_tpu_torch.geometry import Geometry
+    from depth_estimation_tpu_torch.models import multiscale as ms
+    g = Geometry(**C3_GEOMETRY)
+    m32 = ms.MultiscaleFlowModel(g, device=dev).init(
+        torch.Generator().manual_seed(30))
+    m16 = ms.MultiscaleFlowModel(g, decode_dtype=torch.float16, device=dev)
+    m16.load_state_dict(m32.state_dict())
+    s1, s2 = working_frames(6, C3_B, g.hImg, g.wImg, dev)
+    n_idx = codecs.n_indices(g)
+    outs = {}
+    for name, m in (("f16", m16), ("f32", m32)):
+        idx, pmax = m.decode_full_staged(s1, s2)
+        torch.cuda.synchronize()
+        check(tuple(idx.shape) == tuple(pmax.shape) == (C3_B, g.hImg, g.wImg),
+              f"config3 {name} shapes {idx.shape}")
+        check(bool(torch.isfinite(pmax).all() and (idx >= 0).all()
+                   and (idx < n_idx).all()), f"config3 {name} outputs")
+        outs[name] = (idx, pmax)
+    f16_agree = (outs["f16"][0] == outs["f32"][0]).float().mean().item()
+    times = {name: cuda_ms(lambda m=m: m.decode_full_staged(s1, s2))
+             for name, m in (("f16", m16), ("f32", m32))}
+    # decode_full equals the argmax (middle tie-break) and max of the full
+    # distribution, on the card
+    a1, a2 = s1[:C3_CHECK_B], s2[:C3_CHECK_B]
+    dist = m32.forward_full(a1, a2)
+    idx, pmax = m32.decode_full(a1, a2)
+    mid = codecs.middle_index(g)
+    bm = dist.amax(-1)
+    tie = dist[..., mid] >= bm
+    want = torch.where(tie, torch.full_like(idx, mid),
+                       dist.argmax(-1).to(torch.int32))
+    want_p = torch.where(tie, dist[..., mid], bm) / dist.sum(-1)
+    inv_equal = (idx == want).float().mean().item()
+    inv_p = ((pmax - want_p).abs() / want_p).max().item()
+    del dist
+    # one pair, card vs CPU (the same weights)
+    cpu = ms.MultiscaleFlowModel(g, device="cpu")
+    cpu.load_state_dict(m32.state_dict())
+    cidx, cp = cpu.decode_full(s1[0].cpu(), s2[0].cpu())
+    cvc_agree = (outs["f32"][0][0].cpu() == cidx).float().mean().item()
+    cvc_p = (outs["f32"][1][0].cpu() - cp).abs().max().item()
+    fps = {k: C3_B / (v / 1e3) for k, v in times.items()}
+    print(f"config3 multiscale {g.hImg}x{g.wImg} trunk {g.layers} "
+          f"{g.maxh}x{g.maxw} ratios {g.ratios}: decode_full vs forward_full "
+          f"argmax at B={C3_CHECK_B} equal on {inv_equal:.6f}, pmax rel diff "
+          f"{inv_p:.2e}; card vs CPU (1 pair) idx equal on {cvc_agree:.6f}, "
+          f"pmax diff {cvc_p:.2e}; f16 vs f32 decode idx equal on "
+          f"{f16_agree:.4f}", flush=True)
+    for k in ("f16", "f32"):
+        print(f"[{card}] config3 staged decode {k}: B={C3_B} {times[k]:.1f} ms"
+              f" = {fps[k]:.1f} frames/s", flush=True)
+    report["config3"] = dict(ms=times, fps=fps, invariant_equal=inv_equal,
+                             invariant_pmax_rel=inv_p, card_vs_cpu_equal=cvc_agree,
+                             card_vs_cpu_pmax=cvc_p, f16_vs_f32_equal=f16_agree)
+    check(inv_equal == 1.0 and inv_p <= 1e-5,
+          f"config3 decode_full vs forward_full: {inv_equal} {inv_p}")
+    check(cvc_agree >= TOL_AGREE and cvc_p <= TOL_PROB,
+          f"config3 card vs CPU: {cvc_agree} {cvc_p}")
+
+
+@torch.no_grad()
+def phase_radial(dev, card, report):
+    """BASELINE config4 at full width: forward-motion frames warped to
+    200x200 polar images, flow_batch at B=64 (timed), one pair card vs CPU,
+    and one cartesian frame through cartesian2polar, the network and
+    flow2depth."""
+    from depth_estimation_tpu_torch.geometry3d import polar
+    from depth_estimation_tpu_torch.models.radial import RadialFlowNetwork
+    net = RadialFlowNetwork(C4_LAYERS, C4_HWIN, device=dev).init(
+        torch.Generator().manual_seed(40))
+    h, w = C4_CART
+    s1, s2 = working_frames(7, C4_B, h, w, dev)
+    grid = polar.get_c2p_grid(w, h, C4_W, C4_H, device=dev)
+    p1 = torch.stack([polar.cartesian2polar(f, grid) for f in s1])
+    p2 = torch.stack([polar.cartesian2polar(f, grid) for f in s2])
+    flow, mcost = net.flow_batch(p1, p2)
+    torch.cuda.synchronize()
+    shape = (C4_B, C4_H - net.h_kernel + 1 - C4_HWIN + 1, C4_W - net.w_kernel + 1)
+    check(tuple(flow.shape) == tuple(mcost.shape) == shape,
+          f"config4 shapes {flow.shape}")
+    check(bool(((flow >= 0) & (flow < C4_HWIN)).all()
+               and torch.isfinite(mcost).all()), "config4 outputs")
+    ms_ = cuda_ms(lambda: net.flow_batch(p1, p2))
+    fps = C4_B / (ms_ / 1e3)
+    cpu = RadialFlowNetwork(C4_LAYERS, C4_HWIN, device="cpu")
+    cpu.load_state_dict(net.state_dict())
+    cflow, cmcost = cpu.flow(p1[0].cpu(), p2[0].cpu())
+    agree = (flow[0].cpu() == cflow).float().mean().item()
+    rel = ((mcost[0].cpu() - cmcost).abs().max() / cmcost.abs().max()).item()
+    # one cartesian frame end to end, epipole at the image centre
+    fl, _ = net.flow(polar.cartesian2polar(s1[0], grid),
+                     polar.cartesian2polar(s2[0], grid))
+    depth, confs = polar.flow2depth(h, w, fl, (w / 2, h / 2))
+    check(bool(torch.isfinite(depth).all() and (depth >= 0).all())
+          and tuple(depth.shape) == tuple(confs.shape) == shape[1:],
+          "config4 flow2depth")
+    print(f"config4 radial polar {C4_H}x{C4_W} hWin {C4_HWIN} {C4_LAYERS}: "
+          f"card vs CPU (1 pair) flow equal on {agree:.6f}, min cost max rel "
+          f"diff {rel:.2e}; cartesian {h}x{w} frame -> polar -> flow -> depth: "
+          f"median depth {depth[confs > 0].median().item():.3f}, confident "
+          f"{confs.float().mean().item():.3f}", flush=True)
+    print(f"[{card}] config4 flow_batch: B={C4_B} {ms_:.2f} ms = {fps:.1f} "
+          f"frames/s", flush=True)
+    report["config4"] = dict(ms=ms_, fps=fps, card_vs_cpu_equal=agree,
+                             card_vs_cpu_min_cost_rel=rel)
+    check(agree >= TOL_AGREE and rel <= TOL_RADIAL_COST_REL,
+          f"config4 card vs CPU: {agree} {rel}")
+
+
+@torch.no_grad()
+def phase_version2(dev, report):
+    """The version2 network at its defaults (180x320, contrastive
+    normalization, 17x17x32 trunk, 17x17 window): one pair card vs CPU."""
+    from depth_estimation_tpu_torch.models.version2 import V2Network
+    net = V2Network(device=dev).init(torch.Generator().manual_seed(50))
+    g = net.geometry
+    s1, s2 = working_frames(8, 1, g.hImg, g.wImg, dev)
+    costs = net.costs(s1[0], s2[0])
+    cpu = V2Network(device="cpu")
+    cpu.load_state_dict(net.state_dict())
+    ccosts = cpu.costs(s1[0].cpu(), s2[0].cpu())
+    check(tuple(costs.shape) == tuple(ccosts.shape)
+          and bool(torch.isfinite(costs).all()), f"version2 costs {costs.shape}")
+    d = (costs.cpu() - ccosts).abs()
+    rel = (d.max() / ccosts.abs().max()).item()
+    rel_each = (d / ccosts.abs().clamp(min=1e-3)).max().item()
+    agree = (costs.argmin(-1).cpu() == ccosts.argmin(-1)).float().mean().item()
+    print(f"version2 {g.hImg}x{g.wImg} trunk {g.layers} {g.maxh}x{g.maxw}: "
+          f"costs {tuple(costs.shape)} card vs CPU max diff / max cost "
+          f"{rel:.2e} (elementwise {rel_each:.2e}), WTA equal on {agree:.6f}",
+          flush=True)
+    report["version2"] = dict(card_vs_cpu_rel=rel, elementwise_rel=rel_each,
+                              wta_equal=agree)
+    check(rel <= TOL_COST_REL, f"version2 card vs CPU: {rel}")
+
+
 def bound_ms(nbytes, flops):
     """The least time the card could take: the larger of the bytes over the
     HBM rate and the FP32 operations over the FP32 peak. Returns (ms, 'bytes'
@@ -605,12 +849,13 @@ def bound_ms(nbytes, flops):
     return 1e3 * max(tb, to), ("bytes" if tb >= to else "operations")
 
 
-def matcher_bound(f1, f2, maxh, maxw, n_out, flops_per_cell):
-    """A fused matcher's bound: f1 and f2 read once, n_out (B, H, W) 4-byte
-    outputs written once; flops_per_cell per pixel and window cell."""
+def matcher_bound(f1, f2, maxh, maxw, n_out, flops_per_cell, extra_bytes=0):
+    """A fused matcher's bound: f1 and f2 (and ``extra_bytes`` of other
+    inputs) read once, n_out (B, H, W) 4-byte outputs written once;
+    flops_per_cell per pixel and window cell."""
     B, H, W, _ = f1.shape
     nbytes = (f1.numel() * f1.element_size() + f2.numel() * f2.element_size()
-              + n_out * B * H * W * 4)
+              + n_out * B * H * W * 4 + extra_bytes)
     return bound_ms(nbytes, B * H * W * maxh * maxw * flops_per_cell)
 
 
@@ -661,6 +906,19 @@ def phase_timing(dev, card, ests, frames, gt_frames, report):
         print(f"[{card}] B2 match_fast {str(dt)[6:]}, B={B_MAIN} 150x290x10 "
               f"16x16: kernel {k:.3f} ms, plain {p:.1f} ms (B1 same shape: "
               f"{rows['match_fused_' + str(dt)[6:]][0]:.3f} ms)", flush=True)
+    # B5 at the same shape: the kernel alone (on norms computed once) and
+    # the wrapper (norms included), against its twin on the same norms
+    from depth_estimation_tpu_torch.ops import matching_experimental as mexp
+    a, b, n1, n2 = mexp._norms(f1, f2)
+    k = cuda_ms(lambda: mexp._match_flow_throughput_cuda(a, b, n1, n2, 16, 16))
+    w = cuda_ms(lambda: mexp.match_flow_throughput(f1, f2, 16, 16))
+    p = cuda_ms(lambda: mexp.match_flow_throughput_plain(a, b, n1, n2, 16, 16),
+                reps=3)
+    rows["match_throughput"] = (k, p)
+    rows["match_throughput_wrapper"] = (w, p)
+    print(f"[{card}] B5 match_throughput float32, B={B_MAIN} 150x290x10 16x16: "
+          f"kernel {k:.3f} ms, with the norms {w:.3f} ms, plain {p:.1f} ms "
+          f"(B2 same shape: {rows['match_fast_float32'][0]:.3f} ms)", flush=True)
     # B4 at the ground truth's finest level, and one config2 solve
     from depth_estimation_tpu_torch.flow import celiu, sor_kernel
     planes, alpha = sor_planes(gen, GT_B, GT_H, GT_W, dev)
@@ -680,6 +938,9 @@ def phase_timing(dev, card, ests, frames, gt_frames, report):
         "match_fused": matcher_bound(f1, f2, 16, 16, 5, 3 * 10 + 5),
         "match_fast": matcher_bound(f1.to(torch.bfloat16), f2.to(torch.bfloat16),
                                     16, 16, 4, 2 * 10 + 3 + 7),
+        "match_throughput": matcher_bound(
+            f1, f2, 16, 16, 4, 2 * 10 + 3 + 7,
+            (n1.numel() + n2.numel()) * 4),
         "warp_banded": bound_ms(
             imgs.numel() * 4 + xs.numel() * 4 + ys.numel() * 4
             + imgs.numel() * 4, imgs.numel() * 7),
@@ -728,6 +989,10 @@ def main() -> int:
     phase_card_vs_cpu(dev, geom, params, report)
     counts["sor_redblack"], gt_frames = phase_gt(dev, geom, report)
     counts["match_fast"] = phase_matching_core(dev, card, report)
+    counts["match_throughput"] = phase_throughput_core(dev, card, report)
+    phase_multiscale(dev, card, report)
+    phase_radial(dev, card, report)
+    phase_version2(dev, report)
     rows, bounds = phase_timing(dev, card, ests, frames, gt_frames, report)
 
     def entry(name, fn, src, replaces, row):
@@ -747,6 +1012,10 @@ def main() -> int:
               "depth_estimation_tpu/ops/matching.py:366", "match_fast_bfloat16"),
         entry("sor_redblack", "sor_redblack", "sor_redblack.cu",
               "depth_estimation_tpu/flow/sor_kernel.py:50", "sor_redblack"),
+        entry("match_throughput", "match_flow_throughput",
+              "match_throughput.cu",
+              "depth_estimation_tpu/ops/matching_experimental.py:35",
+              "match_throughput"),
     ]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} not launched on its path")

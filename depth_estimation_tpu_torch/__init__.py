@@ -6,21 +6,30 @@ functions (channels-last ``(B, H, W, C)`` frames and features, ``(B, H, W)``
 flow, mask and depth), and is tested against it on the same inputs
 (``tests/test_torch_*.py``). This package imports torch and numpy, never jax.
 
-The two TPU kernels of the online program are hand-written CUDA C++ for
-Hopper (``csrc/``), built with nvcc at first use (``ops/_kernels.py``):
+The package's TPU kernels are hand-written CUDA C++ for Hopper (``csrc/``),
+built with nvcc at first use (``ops/_kernels.py``):
 
-  ops/matching.match_flow_fused   <- csrc/match_fused.cu
-  ops/warp.banded_bilinear_warp   <- csrc/warp_banded.cu
+  ops/matching.match_flow_fused               <- csrc/match_fused.cu (B1)
+  ops/matching.match_flow_fast                <- csrc/match_fast.cu (B2)
+  ops/warp.banded_bilinear_warp               <- csrc/warp_banded.cu (B3)
+  flow/sor_kernel.sor_redblack                <- csrc/sor_redblack.cu (B4)
+  ops/matching_experimental.match_flow_throughput
+                                              <- csrc/match_throughput.cu (B5)
 
 Each has a plain PyTorch twin in the same module, used for CPU tensors.
 
-Layer map of the slice ported so far:
+Layer map of what is ported so far:
   geometry / codecs            static config + displacement index codecs
   geometry3d/                  calibration, undistortion + rotation warps,
-                               Shi-Tomasi + windowed LK + essential RANSAC
-  models/                      conv trunk, single-scale flow model, weights IO
-  data/images                  separable-matmul resize
-  ops/                         fused matcher, banded warp, confidence masks
+                               Shi-Tomasi + windowed LK + essential RANSAC,
+                               polar warps and radial flow -> depth
+  models/                      conv trunk, single-scale flow model, the
+                               multiscale, radial, version2 and legacy
+                               families, weights IO and bridges
+  data/                        separable-matmul resize, flow ground truth
+  flow/                        Ce Liu's variational solver
+  ops/                         matchers, banded warp, confidence masks,
+                               post-processing filters, normalizations
   api / api_batched            the per-frame and the batched online programs
 """
 

@@ -13,6 +13,8 @@ channels-last ``(..., H, W, C)`` at the module boundary, NCHW inside.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -87,15 +89,61 @@ class ConvFilter(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x (..., H, W, Cin) -> (..., H', W', K), channels-last."""
-        lead = x.shape[:-3]
-        h = x.reshape((-1,) + tuple(x.shape[-3:])).permute(0, 3, 1, 2)
+        h = to_nchw(x)
         n = len(self.geometry.layers)
         for i in range(n):
             h = getattr(self, f"layer{i + 1}")(h)
             if i != n - 1:
                 h = torch.tanh(h)
-        h = h.permute(0, 2, 3, 1).contiguous()
-        return h.reshape(lead + tuple(h.shape[1:]))
+        return to_nhwc(h, x.shape[:-3])
+
+
+def to_nchw(x: torch.Tensor) -> torch.Tensor:
+    """(..., H, W, C) -> (N, C, H, W), the leading dims flattened."""
+    return x.reshape((-1,) + tuple(x.shape[-3:])).permute(0, 3, 1, 2)
+
+
+def to_nhwc(h: torch.Tensor, lead) -> torch.Tensor:
+    """(N, C, H, W) -> (*lead, H, W, C), contiguous."""
+    h = h.permute(0, 2, 3, 1).contiguous()
+    return h.reshape(tuple(lead) + tuple(h.shape[1:]))
+
+
+def _lecun_normal(shape, fan_in: int, generator) -> torch.Tensor:
+    """flax's lecun_normal: a normal truncated at two standard deviations,
+    scaled to variance 1 / fan_in."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    w = torch.empty(shape)
+    nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
+    return w
+
+
+@torch.no_grad()
+def init_params(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Random weights at the reference's initial scales for every conv and
+    linear layer of ``module``: lecun-normal dense kernels, uniform sparse
+    kernels of variance 1 / (3 fan_in), zero biases. Drawn on the CPU from
+    ``generator`` (a CPU ``torch.Generator``), then copied to the module's
+    device, so a seed gives the same weights on every device."""
+    for m in module.modules():
+        if isinstance(m, DenseConv):
+            cout, cin, kh, kw = m.weight.shape
+            w = _lecun_normal((kh, kw, cin, cout), kh * kw * cin, generator)
+            m.weight.copy_(w.permute(3, 2, 0, 1))
+        elif isinstance(m, SparseConvMap):
+            kh, kw, nto, _ = m.kernel.shape
+            lim = math.sqrt(1.0 / (kh * kw * nto))
+            w = torch.empty(m.kernel.shape)
+            nn.init.uniform_(w, -lim, lim, generator=generator)
+            m.kernel.copy_(w)
+        elif isinstance(m, nn.Linear):
+            w = _lecun_normal((m.in_features, m.out_features), m.in_features,
+                              generator)
+            m.weight.copy_(w.t())
+        else:
+            continue
+        m.bias.zero_()
+    return module
 
 
 def identity_filter_params(geometry: Geometry) -> dict:

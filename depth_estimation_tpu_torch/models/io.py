@@ -11,6 +11,7 @@ a packed ndarray ``(shape, dtype name, raw little-endian bytes)``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import struct
@@ -117,7 +118,7 @@ def unpackb(payload: bytes) -> Any:
 
 
 # ---------------------------------------------------------------------------
-# Weights bridge: JAX/flax parameter tree -> ConvFilter state
+# Weights bridge: JAX/flax parameter trees -> the port's state dicts
 # ---------------------------------------------------------------------------
 
 def filter_state_from_jax(geometry: Geometry, tree: Dict) -> Dict[str, torch.Tensor]:
@@ -147,10 +148,86 @@ def filter_state_from_jax(geometry: Geometry, tree: Dict) -> Dict[str, torch.Ten
     return state
 
 
+def _prefixed(prefix: str, state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    return {prefix + k: v for k, v in state.items()}
+
+
+def multiscale_state_from_jax(geometry: Geometry, tree: Dict) -> Dict[str, torch.Tensor]:
+    """Map a flax multiscale tree onto ``models.multiscale.MultiscaleFlowModel``'s
+    state dict: the shared trunk (``{"params": ...}``) or one trunk per scale
+    (``{"scales": {"scale{s}": {"params": ...}}}``) into ``filters.{s}.*``,
+    and the trainable cascade weights ``{"cascade": {"betas"}}`` into
+    ``betas``. A shared tree under a geometry with unshared filters fills
+    every scale's trunk with it, as the reference then reads it."""
+    n = len(geometry.ratios)
+    state = {}
+    if "scales" in tree:
+        if geometry.share_filters:
+            raise ValueError("per-scale trunks under a shared-filters geometry")
+        for s in range(n):
+            state.update(_prefixed(f"filters.{s}.", filter_state_from_jax(
+                geometry, tree["scales"][f"scale{s}"])))
+    else:
+        trunk = filter_state_from_jax(geometry, tree)
+        for s in range(1 if geometry.share_filters else n):
+            state.update(_prefixed(f"filters.{s}.", trunk))
+    if geometry.cascad_trainable_weights:
+        state["betas"] = torch.from_numpy(
+            np.array(tree["cascade"]["betas"], np.float32))
+    return state
+
+
+def _conv_state(name: str, p: Dict) -> Dict[str, torch.Tensor]:
+    """A flax nn.Conv's (kh, kw, cin, cout) kernel and bias as a
+    ``DenseConv``'s (cout, cin, kh, kw) weight and bias."""
+    k = np.asarray(p["kernel"], np.float32)
+    if k.ndim != 4:
+        raise ValueError(f"{name}: conv kernel shape {k.shape}")
+    return {f"{name}.weight": torch.from_numpy(
+                np.ascontiguousarray(k.transpose(3, 2, 0, 1))),
+            f"{name}.bias": torch.from_numpy(np.array(p["bias"], np.float32))}
+
+
+def radial_state_from_jax(layers, tree: Dict) -> Dict[str, torch.Tensor]:
+    """Map a flax RadialFilter tree ``{"params": {"layer{i}": {"kernel",
+    "bias"}}}`` onto ``models.radial.RadialFlowNetwork``'s state dict
+    (``filter.layer{i}.*``); ``layers`` is the radial spec."""
+    params = tree["params"] if "params" in tree else tree
+    n = sum(1 for l in layers if not isinstance(l, str))
+    state = {}
+    for i in range(1, n + 1):
+        state.update(_conv_state(f"filter.layer{i}", params[f"layer{i}"]))
+    return state
+
+
+def legacy_state_from_jax(tree: Dict) -> Dict[str, torch.Tensor]:
+    """Map a flax tree of the legacy models onto their state dicts:
+    ``LegacyFlowModel``'s bare nn.Conv (``{"params": {"kernel", "bias"}}``)
+    into ``conv.*``; ``DepthClassifierCNN``'s ``conv1..3`` into DenseConvs
+    and its nn.Dense ``classifier`` (an (in, out) kernel) into an
+    nn.Linear."""
+    params = tree["params"] if "params" in tree else tree
+    if "kernel" in params:
+        return _conv_state("conv", params)
+    state = {}
+    for name in ("conv1", "conv2", "conv3"):
+        state.update(_conv_state(name, params[name]))
+    dense = params["classifier"]
+    state["classifier.weight"] = torch.from_numpy(
+        np.ascontiguousarray(np.asarray(dense["kernel"], np.float32).T))
+    state["classifier.bias"] = torch.from_numpy(
+        np.array(dense["bias"], np.float32))
+    return state
+
+
 def load_model(path: str) -> Tuple[Geometry, Learning, Dict, dict]:
     """Rebuild (geometry, learning, params, meta) from a version-9
     checkpoint directory; ``params`` is the flax tree as numpy arrays
-    (feed it to ``filter_state_from_jax``). Rejects other versions."""
+    (feed it to ``filter_state_from_jax``, or to
+    ``multiscale_state_from_jax`` for a multiscale geometry). Rejects other
+    versions. A multiscale checkpoint whose meta says unshared filters but
+    whose tree holds one shared trunk (written before per-scale trunks
+    existed) comes back with its geometry corrected to shared filters."""
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
     if meta.get("version") != FORMAT_VERSION:
@@ -161,11 +238,11 @@ def load_model(path: str) -> Tuple[Geometry, Learning, Dict, dict]:
     gd["layers"] = tuple(tuple(l) for l in gd["layers"])
     gd["ratios"] = tuple(gd["ratios"])
     geom = Geometry(**gd)
-    if geom.multiscale:
-        raise NotImplementedError("multiscale checkpoints are not ported yet")
     learning = Learning(**meta["learning"])
     with open(os.path.join(path, "params.msgpack"), "rb") as f:
         params = unpackb(f.read())
+    if geom.multiscale and not geom.share_filters and "scales" not in params:
+        geom = dataclasses.replace(geom, share_filters=True)
     return geom, learning, params, meta
 
 

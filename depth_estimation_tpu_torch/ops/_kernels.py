@@ -26,7 +26,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 SOURCES = ("match_fused.cu", "warp_banded.cu", "sor_redblack.cu",
-           "match_fast.cu")
+           "match_fast.cu", "match_throughput.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -49,6 +49,8 @@ SIGNATURES = {
     # f1, f2, idx, ey, ex, pmax, B, H, W, K, maxh, maxw, is_bf16, stream
     "match_fast_launch": [_P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _I, _I, _P],
+    # f1, f2, n1, n2, idx, ey, ex, pmax, B, H, W, K, maxh, maxw, stream
+    "match_throughput_launch": [_P] * 8 + [_I] * 6 + [_P],
 }
 
 

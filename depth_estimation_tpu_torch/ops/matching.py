@@ -5,7 +5,8 @@
 with ``f1`` the half-window-cropped reference features, so flat index ``d``
 is the centered displacement ``(dy - halfh1, dx - halfw1)``.
 
-  * ``match_ssd`` — the full cost volume (plain torch).
+  * ``match_ssd`` — the full cost volume (plain torch), and its 1-D
+    radial form ``match_ssd_radial``.
   * ``match_flow_fused`` — match + softmax + winner-take-all + soft-argmax
     (+ the y-marginal or the 'mean'-head confidence gate) in one pass. On a
     CUDA tensor it launches the hand-written kernel ``csrc/match_fused.cu``
@@ -66,6 +67,12 @@ def match_ssd(f1: torch.Tensor, f2: torch.Tensor, maxh: int, maxw: int,
     costs = [_ssd_k_order(f1, f2[..., dy:dy + H, dx:dx + W, :])
              for dy in range(maxh) for dx in range(maxw)]
     return torch.stack(costs, dim=-1)
+
+
+def match_ssd_radial(f1: torch.Tensor, f2: torch.Tensor, hwin: int) -> torch.Tensor:
+    """1-D radial matching (polar space, search along rows only): f2 is
+    taller than f1 by hwin - 1. Returns (..., H, W, hwin)."""
+    return match_ssd(f1, f2, hwin, 1)
 
 
 def wta_from_costs(costs: torch.Tensor, mid: int) -> torch.Tensor:

@@ -21,6 +21,12 @@ def resolve(device) -> torch.device:
     return dev
 
 
+def true_div(t: torch.Tensor, c: float) -> torch.Tensor:
+    """t / c as a true division on every device (a CUDA ``tensor / scalar``
+    multiplies by the reciprocal of the scalar)."""
+    return t / torch.tensor(float(c), dtype=t.dtype, device=t.device)
+
+
 def as_f32(x, device) -> torch.Tensor:
     """``x`` (a tensor or a numpy array) as a float32 tensor on ``device``,
     resolved as above."""

@@ -8,8 +8,10 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
 It runs ``BatchedDepthEstimator`` at the car_model's full width, B=128, on
 ``chip_smoke.forward_frames`` pairs, in fast mode and in 'warp' mode; the
 'liu' ground-truth solve at BASELINE config2 (B=8, 192x256x3, 5/1/40 on
-``chip_smoke.shifted_textures``); and the matching core (B=128). For each
-it reports:
+``chip_smoke.shifted_textures``); the matching core (B=128) through B2 and
+through B5; BASELINE config3's multiscale staged decode (B=64, f32); and
+config4's radial ``flow_batch`` (B=64, 200x200 polar). For each it
+reports:
   * the step time without instrumentation (CUDA events, median of 5);
   * per-stage times: each stage's function is wrapped so that it waits for
     the card before and after it runs (``torch.cuda.synchronize``), and the
@@ -31,9 +33,11 @@ from collections import defaultdict
 
 import torch
 
-from chip_smoke import (B_MAIN, CAR_MODEL, FAST, GT_B, GT_H, GT_SCHEDULE,
-                        GT_SHIFT, GT_W, card_line, cuda_ms, forward_frames,
-                        matching_core, shifted_textures)
+from chip_smoke import (B_MAIN, C3_B, C3_GEOMETRY, C4_B, C4_CART, C4_H,
+                        C4_HWIN, C4_LAYERS, C4_W, CAR_MODEL, FAST, GT_B, GT_H,
+                        GT_SCHEDULE, GT_SHIFT, GT_W, card_line, cuda_ms,
+                        forward_frames, matching_core, shifted_textures,
+                        working_frames)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 REPORT = os.path.join(ROOT, "chiprun_out", "stage_profile.json")
@@ -132,6 +136,64 @@ def instrument_core(totals):
                  (matching, "match_flow_fast", "match_B2")], totals)
 
 
+def instrument_throughput_core(totals):
+    """Stages of the matching core with B5 as the matcher."""
+    from depth_estimation_tpu_torch.data import images
+    from depth_estimation_tpu_torch.models import flow as flow_model
+    from depth_estimation_tpu_torch.ops import matching_experimental as mexp
+    return wrap([(images, "scale_batched_device", "resize"),
+                 (flow_model.FlowModel, "features", "trunk"),
+                 (mexp, "match_flow_throughput", "match_B5"),
+                 (mexp, "_norms", "match_B5.norms"),
+                 (mexp, "_match_flow_throughput_cuda", "match_B5.kernel")],
+                totals)
+
+
+def instrument_multiscale(totals):
+    """Stages of the staged multiscale decode."""
+    from depth_estimation_tpu_torch.models import multiscale as ms
+    from depth_estimation_tpu_torch.ops import matching
+    return wrap([(ms.MultiscaleFlowModel, "features_pyramid", "trunk_pyramid"),
+                 (ms.MultiscaleFlowModel, "decode_from_features", "decode"),
+                 (matching, "match_ssd", "decode.match_ssd"),
+                 (ms, "_coarse_to_fine", "decode.cascade_gathers")], totals)
+
+
+def instrument_radial(totals):
+    """Stages of the radial net's flow_batch."""
+    from depth_estimation_tpu_torch.models import radial
+    from depth_estimation_tpu_torch.ops import matching
+    return wrap([(radial.RadialFilter, "forward", "trunk"),
+                 (matching, "match_ssd", "match_ssd_radial")], totals)
+
+
+def other_families(dev):
+    """(title, report key, run) of the config3 and config4 profiles."""
+    from depth_estimation_tpu_torch.geometry import Geometry
+    from depth_estimation_tpu_torch.geometry3d import polar
+    from depth_estimation_tpu_torch.models import multiscale as ms
+    from depth_estimation_tpu_torch.models.radial import RadialFlowNetwork
+    g = Geometry(**C3_GEOMETRY)
+    m3 = ms.MultiscaleFlowModel(g, device=dev).init(
+        torch.Generator().manual_seed(30))
+    c1, c2 = working_frames(6, C3_B, g.hImg, g.wImg, dev)
+    net = RadialFlowNetwork(C4_LAYERS, C4_HWIN, device=dev).init(
+        torch.Generator().manual_seed(40))
+    h, w = C4_CART
+    s1, s2 = working_frames(7, C4_B, h, w, dev)
+    grid = polar.get_c2p_grid(w, h, C4_W, C4_H, device=dev)
+    with torch.no_grad():
+        p1 = torch.stack([polar.cartesian2polar(f, grid) for f in s1])
+        p2 = torch.stack([polar.cartesian2polar(f, grid) for f in s2])
+    return [
+        (f"config3 staged decode f32, B={C3_B}", "config3",
+         lambda: profile_fn(lambda: m3.decode_full_staged(c1, c2),
+                            instrument_multiscale)),
+        (f"config4 radial flow_batch, B={C4_B}", "config4",
+         lambda: profile_fn(lambda: net.flow_batch(p1, p2), instrument_radial)),
+    ]
+
+
 def profile_fn(fn, instrument_fn):
     """Uninstrumented time (CUDA events, median of 5), per-stage times
     (REPS instrumented runs, mean), and a torch.profiler top list of one
@@ -207,7 +269,10 @@ def main() -> int:
         (f"matching core, B={B_MAIN}", "matching_core",
          lambda: profile_fn(lambda: matching_core(model, *frames),
                             instrument_core)),
-    ]
+        (f"throughput core (B5), B={B_MAIN}", "throughput_core",
+         lambda: profile_fn(lambda: matching_core(model, *frames, "throughput"),
+                            instrument_throughput_core)),
+    ] + other_families(dev)
     for title, name, run in runs:
         r = run()
         report[name] = r

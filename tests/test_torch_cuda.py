@@ -4,7 +4,8 @@ Shapes here are chosen to reach the kernels' edges rather than the main
 paths' shapes (``chip_smoke.py`` covers those): ragged output tiles,
 channel counts between the compiled sizes, non-square and 16-row windows,
 bands of 0 and 1, taps on the image border, 1x1 and odd SOR images, 0, 1
-and 40 SOR iterations, leading batch dims. Every test skips without a
+and 40 SOR iterations, leading batch dims, B5 at K = 1 and 32, a 1x1
+window and batches of 1 and 130, and halos too large for shared memory. Every test skips without a
 CUDA card. This file imports no jax, so it also runs where jax is absent:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -192,3 +193,53 @@ def test_match_fast_kernel_rejects_what_it_does_not_take(dev):
     with pytest.raises(RuntimeError, match="unsupported configuration"):
         matching.match_flow_fast(f1, f2, 64, 64)          # halo > shared memory
     assert matching.match_flow_fast.launches == n0
+
+
+@pytest.mark.parametrize("B", [1, 3, 130])
+@pytest.mark.parametrize("K", [1, 10, 32])
+@pytest.mark.parametrize("maxh,maxw", [(1, 1), (3, 5), (16, 16)])
+def test_match_throughput_kernel_matches_plain(dev, maxh, maxw, K, B):
+    from depth_estimation_tpu_torch.ops import matching_experimental as mexp
+    H, W = 13, 37                      # ragged against the 8x32 output tile
+    g = torch.Generator(device=dev).manual_seed(maxh * 1000 + K * 10 + B)
+    f1 = 0.5 * torch.randn(B, H, W, K, generator=g, device=dev)
+    f2 = 0.5 * torch.randn(B, H + maxh - 1, W + maxw - 1, K, generator=g,
+                           device=dev)
+    n0 = mexp.match_flow_throughput.launches
+    got = mexp.match_flow_throughput(f1, f2, maxh, maxw)
+    assert mexp.match_flow_throughput.launches == n0 + 1
+    a, b, n1, n2 = mexp._norms(f1, f2)
+    ref = mexp.match_flow_throughput_plain(a, b, n1, n2, maxh, maxw)
+    torch.cuda.synchronize()
+    assert got[0].dtype == torch.int32 and tuple(got[0].shape) == (B, H, W)
+    # same arithmetic in the same order on the same norms; only the exp
+    # implementations may differ, so WTA indices agree except at near-ties
+    costs = matching.match_ssd(f1, f2, maxh, maxw)
+    if maxh * maxw > 1:
+        top2 = torch.topk(-costs, 2, dim=-1).values
+        flip = got[0] != ref[0]
+        assert bool(((top2[..., 0] - top2[..., 1])[flip] < 1e-4).all())
+    else:
+        assert bool((got[0] == 0).all())
+    for x, y in zip(got[1:], ref[1:]):
+        assert torch.isfinite(x).all()
+        assert (x - y).abs().max().item() <= 1e-5
+    # the unbatched form gives the first item
+    one = mexp.match_flow_throughput(f1[0], f2[0], maxh, maxw)
+    for x, y in zip(one, got):
+        assert torch.equal(x, y[0])
+
+
+def test_match_throughput_kernel_rejects_what_it_does_not_take(dev):
+    from depth_estimation_tpu_torch.ops import matching_experimental as mexp
+    f1, f2 = _features(dev, 8, 8, 33, 4, 4, seed=0)
+    with pytest.raises(ValueError):
+        mexp.match_flow_throughput(f1, f2, 4, 4)            # > 32 channels
+    f1, f2 = _features(dev, 8, 8, 10, 4, 4, seed=0)
+    with pytest.raises(ValueError, match="block_cols"):
+        mexp.match_flow_throughput(f1, f2, 4, 4, 8, 12)
+    f1, f2 = _features(dev, 8, 8, 32, 64, 64, seed=0)
+    n0 = mexp.match_flow_throughput.launches
+    with pytest.raises(RuntimeError, match="unsupported configuration"):
+        mexp.match_flow_throughput(f1, f2, 64, 64)          # halo > shared memory
+    assert mexp.match_flow_throughput.launches == n0
