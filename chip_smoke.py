@@ -12,8 +12,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
   3. kernels vs their plain PyTorch versions on the card, at their main
      paths' shapes: B1 and B3 at the online program's (B=8, f32 and bf16
      storage), B4 at the ground truth's finest level (B=8, 192x256, 40
-     iterations), B2 at the matching core's (B=8, f32 and bf16), B5 at the
-     same (B=8, f32);
+     iterations, one 8-CTA cluster an image), B2 at the matching core's
+     (B=8, f32 and bf16), B5 at the same (B=8, f32);
   4. the online program end to end at the car_model's full width (ARDRONE
      640x480 uint8 frames of a forward camera step -> 320x180, trunk
      (3,5,5,8),(8,12,12,10), 16x16 window), B=128, in fast mode, 'warp'
@@ -42,13 +42,21 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      one pair card vs CPU, and one cartesian frame through
      cartesian2polar, the net and flow2depth; the version2 net (180x320,
      17x17x32 trunk, 17x17 window), one pair card vs CPU;
- 10. timing: CUDA events after warm-up, median of 5.
+ 10. timing: CUDA events after warm-up, median of 5; B1 in bf16 (the
+     online program's fast mode) and f32; B4 at the finest level (one
+     call, and 10 calls back to back), and over one config2 solve: each
+     launch's device time from torch.profiler, by level, beside the
+     dependency floor (one half-sweep's cluster barrier and boundary-row
+     exchange, measured by a no-arithmetic probe, times the level's
+     dependent half-sweeps).
 
 TF32 is switched off for the whole run (cuDNN convolutions and matmuls run
 in full f32), so that the card computes what the CPU reference computes.
 The last three lines are a JSON summary of the kernels (launches on their
 main path, error against the plain version, kernel and plain times, the
-bound from this run's inputs), the card, and {"ok": true, "device": {...}}. A longer report goes to
+bound from this run's inputs; B1 at bf16; B4 also with its dependency
+floor and its device time over a solve), the card, and {"ok": true,
+"device": {...}}. A longer report goes to
 chiprun_out/chip_smoke_report.json.
 """
 
@@ -128,6 +136,8 @@ C4_CART = (240, 320)        # the cartesian frames warped to polar
 TOL_AGREE = 0.999
 TOL_COST_REL = 1e-5
 TOL_RADIAL_COST_REL = 1e-4
+# B4's dependency floor: the no-arithmetic probe's half-sweeps a timing
+PROBE_HALF_SWEEPS = 400
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, FP32 FLOP/s outside
 # the tensor cores
 PEAK_BYTES = 3.35e12
@@ -859,6 +869,48 @@ def matcher_bound(f1, f2, maxh, maxw, n_out, flops_per_cell, extra_bytes=0):
     return bound_ms(nbytes, B * H * W * maxh * maxw * flops_per_cell)
 
 
+def b4_over_solve(im1, im2):
+    """B4 over one config2 solve, level by level: the device time of its
+    launches (torch.profiler, in launch order, coarsest level first) and
+    the dependency floor of the level's plan, the cost of one half-sweep's
+    cluster barrier and boundary-row exchange (the no-arithmetic probe
+    timed at 0 and PROBE_HALF_SWEEPS / 2 iterations) times the level's
+    dependent half-sweeps."""
+    from torch.profiler import ProfilerActivity, profile
+    from depth_estimation_tpu_torch.flow import celiu, sor_kernel
+    s = GT_SCHEDULE
+    shapes = [tuple(p.shape[-3:-1])
+              for p in celiu.build_pyramid(im1, s["ratio"], s["min_width"])]
+    levels = [(k, shapes[k], s["n_outer"] + k, s["n_sor"] + 3 * k)
+              for k in range(len(shapes) - 1, -1, -1)]
+    celiu.coarse2fine_flow_batched(im1, im2, **s)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        celiu.coarse2fine_flow_batched(im1, im2, **s)
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events()
+                     if "sor_cluster_kernel" in e.name),
+                    key=lambda e: e.time_range.start)
+    durs = [e.time_range.elapsed_us() / 1e3 for e in events]
+    check(len(durs) == sum(lv[2] for lv in levels),
+          f"profiler saw {len(durs)} B4 launches in a solve")
+    n = PROBE_HALF_SWEEPS // 2
+    out, i = [], 0
+    for k, (h, w), calls, n_sor in levels:
+        def probe(m, h=h, w=w):
+            return lambda: [sor_kernel.sor_barrier_probe(GT_B, h, w, m)
+                            for _ in range(10)]
+        t = cuda_ms(probe(n)) / 10 - cuda_ms(probe(0)) / 10
+        half_us = 1e3 * t / (2 * n)
+        out.append(dict(level=k, H=h, W=w, plan=list(sor_kernel.sor_plan(h, w)),
+                        calls=calls, n_sor=n_sor,
+                        device_ms=sum(durs[i:i + calls]),
+                        half_sweep_floor_us=half_us,
+                        floor_ms=calls * 2 * n_sor * half_us / 1e3))
+        i += calls
+    return out
+
+
 def phase_timing(dev, card, ests, frames, gt_frames, report):
     from depth_estimation_tpu_torch.ops import matching, warp
     from depth_estimation_tpu_torch.geometry3d import undistort as undist
@@ -922,20 +974,51 @@ def phase_timing(dev, card, ests, frames, gt_frames, report):
     # B4 at the ground truth's finest level, and one config2 solve
     from depth_estimation_tpu_torch.flow import celiu, sor_kernel
     planes, alpha = sor_planes(gen, GT_B, GT_H, GT_W, dev)
-    k = cuda_ms(lambda: sor_kernel.sor_redblack(*planes, alpha=alpha, n_sor=40))
+    k = cuda_ms(lambda: sor_kernel.sor_redblack(*planes, alpha=alpha,
+                                                 n_sor=40))
+    # 10 calls back to back, so that the card, not the wrapper's host work,
+    # sets the pace (ms a call)
+    k10 = cuda_ms(lambda: [sor_kernel.sor_redblack(*planes, alpha=alpha,
+                                                   n_sor=40)
+                           for _ in range(10)]) / 10
     p = cuda_ms(lambda: celiu.sor_plain(*planes, alpha=alpha, n_sor=40))
     rows["sor_redblack"] = (k, p)
     print(f"[{card}] B4 sor_redblack, B={GT_B} {GT_H}x{GT_W} n_sor=40: "
-          f"kernel {k:.3f} ms, plain {p:.3f} ms", flush=True)
+          f"kernel {k:.3f} ms for one call (the wrapper's host work "
+          f"included), {k10:.3f} ms a call back to back, plain {p:.3f} ms; "
+          f"plan {tuple(sor_kernel.sor_plan(GT_H, GT_W))} (cluster, rows, "
+          f"mode)", flush=True)
     im1, im2 = gt_frames
     ms = cuda_ms(lambda: celiu.coarse2fine_flow_batched(im1, im2,
                                                         **GT_SCHEDULE), reps=3)
     fps["gt_liu_config2"] = GT_B / (ms / 1e3)
     print(f"[{card}] GT liu config2 solve: B={GT_B} {GT_H}x{GT_W}x3 "
           f"{ms:.1f} ms = {fps['gt_liu_config2']:.2f} pairs/s", flush=True)
+    solve = b4_over_solve(im1, im2)
+    for lv in solve:
+        print(f"[{card}] B4 in the solve, level {lv['level']} {lv['H']}x"
+              f"{lv['W']}: {lv['calls']} launches x n_sor {lv['n_sor']}, "
+              f"device {lv['device_ms']:.3f} ms; plan {tuple(lv['plan'])}, "
+              f"one half-sweep's barrier and exchange "
+              f"{lv['half_sweep_floor_us']:.3f} us, floor {lv['floor_ms']:.3f}"
+              f" ms", flush=True)
+    b4_solve = dict(levels=solve, back_to_back_ms=k10,
+                    device_ms=sum(lv["device_ms"] for lv in solve),
+                    floor_ms=sum(lv["floor_ms"] for lv in solve),
+                    launches=sum(lv["calls"] for lv in solve),
+                    half_sweeps=sum(2 * lv["calls"] * lv["n_sor"]
+                                    for lv in solve))
+    print(f"[{card}] B4 over one config2 solve: {b4_solve['launches']} "
+          f"launches, {b4_solve['half_sweeps']} dependent half-sweeps, device "
+          f"{b4_solve['device_ms']:.3f} ms, dependency floor "
+          f"{b4_solve['floor_ms']:.3f} ms", flush=True)
     # bounds from this run's inputs
     bounds = {
-        "match_fused": matcher_bound(f1, f2, 16, 16, 5, 3 * 10 + 5),
+        # at the online program's fast-mode storage, bf16 (f32 printed too)
+        "match_fused": matcher_bound(f1.to(torch.bfloat16),
+                                     f2.to(torch.bfloat16), 16, 16, 5,
+                                     3 * 10 + 5),
+        "match_fused_float32": matcher_bound(f1, f2, 16, 16, 5, 3 * 10 + 5),
         "match_fast": matcher_bound(f1.to(torch.bfloat16), f2.to(torch.bfloat16),
                                     16, 16, 4, 2 * 10 + 3 + 7),
         "match_throughput": matcher_bound(
@@ -950,8 +1033,8 @@ def phase_timing(dev, card, ests, frames, gt_frames, report):
     for name, (b, by) in bounds.items():
         print(f"bound {name}: {b:.4f} ms ({by})", flush=True)
     report["timing"] = dict(card=card, fps=fps, kernels_ms=rows,
-                            bounds_ms=bounds)
-    return rows, bounds
+                            bounds_ms=bounds, b4_solve=b4_solve)
+    return rows, bounds, b4_solve
 
 
 def main() -> int:
@@ -993,7 +1076,8 @@ def main() -> int:
     phase_multiscale(dev, card, report)
     phase_radial(dev, card, report)
     phase_version2(dev, report)
-    rows, bounds = phase_timing(dev, card, ests, frames, gt_frames, report)
+    rows, bounds, b4_solve = phase_timing(dev, card, ests, frames, gt_frames,
+                                          report)
 
     def entry(name, fn, src, replaces, row):
         return {"name": fn, "route": "cuda",
@@ -1005,7 +1089,7 @@ def main() -> int:
 
     kernels = [
         entry("match_fused", "match_flow_fused", "match_fused.cu",
-              "depth_estimation_tpu/ops/matching.py:116", "match_fused_float32"),
+              "depth_estimation_tpu/ops/matching.py:116", "match_fused_bfloat16"),
         entry("warp_banded", "banded_bilinear_warp", "warp_banded.cu",
               "depth_estimation_tpu/ops/warp.py:38", "warp_banded_float32"),
         entry("match_fast", "match_flow_fast", "match_fast.cu",
@@ -1017,6 +1101,15 @@ def main() -> int:
               "depth_estimation_tpu/ops/matching_experimental.py:35",
               "match_throughput"),
     ]
+    # B4 beside its bound: the floor of its dependent half-sweeps (one call
+    # at the finest level, 40 iterations), and its device time over a solve
+    finest = b4_solve["levels"][-1]
+    next(k for k in kernels if k["name"] == "sor_redblack").update(
+        ms_back_to_back=b4_solve["back_to_back_ms"],
+        dependency_floor_ms=2 * 40 * finest["half_sweep_floor_us"] / 1e3,
+        solve_launches=b4_solve["launches"],
+        solve_device_ms=b4_solve["device_ms"],
+        solve_dependency_floor_ms=b4_solve["floor_ms"])
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} not launched on its path")
     report["kernels"] = kernels

@@ -25,37 +25,46 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("match_fused.cu", "warp_banded.cu", "sor_redblack.cu",
-           "match_fast.cu", "match_throughput.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# C signatures: every function returns a cudaError_t (0 = success) or a
-# negative code for a configuration it does not support. The function
-# ``<stem>_launch`` lives in ``csrc/<stem>.cu``.
+# C signatures by source (``csrc/<stem>.cu``): every function takes the
+# stream last and returns a cudaError_t (0 = success) or a negative code
+# for a configuration it does not support.
 SIGNATURES = {
-    # f1, f2, idx, ey, ex, pmax, extra, B, H, W, K, maxh, maxw, is_bf16,
-    # want_marg, want_conf, conf_threshold, stream
-    "match_fused_launch": [_P, _P, _P, _P, _P, _P, _P,
-                           _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
-    # img, xs, ys, out, B, H, W, C, band, is_bf16, stream
-    "warp_banded_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # w_w, w_e, w_n, w_s, denom_u, denom_v, b1, b2, imdxy, du, dv, B, H, W,
-    # n_sor, neg_alpha, omega, one_minus_omega, stream
-    "sor_redblack_launch": [_P] * 11 + [_I, _I, _I, _I, _F, _F, _F, _P],
-    # f1, f2, idx, ey, ex, pmax, B, H, W, K, maxh, maxw, is_bf16, stream
-    "match_fast_launch": [_P, _P, _P, _P, _P, _P,
-                          _I, _I, _I, _I, _I, _I, _I, _P],
-    # f1, f2, n1, n2, idx, ey, ex, pmax, B, H, W, K, maxh, maxw, stream
-    "match_throughput_launch": [_P] * 8 + [_I] * 6 + [_P],
+    "match_fused": {
+        # f1, f2, idx, ey, ex, pmax, extra, B, H, W, K, maxh, maxw, is_bf16,
+        # want_marg, want_conf, conf_threshold, stream
+        "match_fused_launch": [_P, _P, _P, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    },
+    "warp_banded": {
+        # img, xs, ys, out, B, H, W, C, band, is_bf16, stream
+        "warp_banded_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    },
+    "sor_redblack": {
+        # w_w, w_e, w_n, w_s, denom_u, denom_v, b1, b2, imdxy, du, dv, B, H,
+        # W, n_sor, neg_alpha, omega, one_minus_omega, cluster, rows, mode,
+        # stream
+        "sor_redblack_launch": [_P] * 11 + [_I] * 4 + [_F] * 3 + [_I] * 3
+                               + [_P],
+        # du, dv, B, H, W, n_sor, cluster, rows, mode, stream
+        "sor_redblack_probe_launch": [_P, _P] + [_I] * 7 + [_P],
+    },
+    "match_fast": {
+        # f1, f2, idx, ey, ex, pmax, B, H, W, K, maxh, maxw, is_bf16, stream
+        "match_fast_launch": [_P, _P, _P, _P, _P, _P,
+                              _I, _I, _I, _I, _I, _I, _I, _P],
+    },
+    "match_throughput": {
+        # f1, f2, n1, n2, idx, ey, ex, pmax, B, H, W, K, maxh, maxw, stream
+        "match_throughput_launch": [_P] * 8 + [_I] * 6 + [_P],
+    },
 }
-
-
-def _stem(fn_name: str) -> str:
-    return fn_name[:-len("_launch")]
+SOURCES = tuple(f"{stem}.cu" for stem in SIGNATURES)
 
 
 def _nvcc() -> str:
@@ -83,16 +92,19 @@ class KernelLibrary:
         self.build_seconds = build_seconds
         self.log = log
         self.libs = {stem: ctypes.CDLL(str(p)) for stem, p in paths.items()}
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(self.libs[_stem(name)], name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+        self.fns = {}
+        for stem, sigs in SIGNATURES.items():
+            for name, argtypes in sigs.items():
+                fn = getattr(self.libs[stem], name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                self.fns[name] = fn
 
     def call(self, name: str, *args) -> None:
         """Call a launcher on PyTorch's current stream and raise on any
         launch error the C side reports."""
         stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(self.libs[_stem(name)], name)(*args, stream)
+        err = self.fns[name](*args, stream)
         if err != 0:
             raise RuntimeError(f"{name} failed with code {err} "
                                f"({_error_name(err)})")

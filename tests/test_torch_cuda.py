@@ -5,8 +5,15 @@ paths' shapes (``chip_smoke.py`` covers those): ragged output tiles,
 channel counts between the compiled sizes, non-square and 16-row windows,
 bands of 0 and 1, taps on the image border, 1x1 and odd SOR images, 0, 1
 and 40 SOR iterations, leading batch dims, B5 at K = 1 and 32, a 1x1
-window and batches of 1 and 130, and halos too large for shared memory. Every test skips without a
-CUDA card. This file imports no jax, so it also runs where jax is absent:
+window and batches of 1 and 130, and halos too large for shared memory.
+B4's cluster partitions are held at every level shape of a config2 solve,
+at strips cut unevenly, at images shorter than a cluster, at images whose
+planes (240x320) or flows (480x640, 1000x1000) exceed the cluster's
+shared memory, and on stale memory from the allocator, with its barrier
+probe in every mode; B1's two pixels a thread at widths that cut a
+thread's pair and at images smaller than one tile. Every test skips
+without a CUDA card. This file imports no jax, so it also runs where
+jax is absent:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
@@ -147,6 +154,87 @@ def test_sor_redblack_kernel_matches_plain(dev, lead, H, W, n_sor):
     # same operations in the same order with rounded intrinsics: equal
     assert (du - ref[0]).abs().max().item() <= 1e-6
     assert (dv - ref[1]).abs().max().item() <= 1e-6
+
+
+def _config2_levels():
+    """(H, W) of the liu solve's pyramid at BASELINE config2 (192x256,
+    ratio 0.75, min_width 30), finest first."""
+    from depth_estimation_tpu_torch.flow import celiu
+    pyr = celiu.build_pyramid(torch.zeros(192, 256, 3), 0.75, 30)
+    return [tuple(p.shape[:2]) for p in pyr]
+
+
+@pytest.mark.parametrize("k", range(7))
+def test_sor_redblack_config2_levels_equal_plain(dev, k):
+    from depth_estimation_tpu_torch.flow import celiu, sor_kernel
+    levels = _config2_levels()
+    assert len(levels) == 7
+    H, W = levels[k]
+    planes, alpha = _sor_planes(dev, (8,), H, W, seed=k)
+    du, dv = sor_kernel.sor_redblack(*planes, alpha=alpha, n_sor=40 + 3 * k)
+    ref = celiu.sor_plain(*planes, alpha=alpha, n_sor=40 + 3 * k)
+    torch.cuda.synchronize()
+    assert torch.equal(du, ref[0]) and torch.equal(dv, ref[1])
+
+
+@pytest.mark.parametrize("H,W,mode", [
+    (144, 192, 0),      # 8 CTAs of 18 rows
+    (97, 129, 0),       # odd W, 7 CTAs, the last strip short
+    (5, 2001, 0),       # fewer rows than a full cluster: one row a CTA
+    (3, 4001, 1),       # three one-row CTAs, du/dv alone in shared memory
+    (240, 320, 1),      # planes beyond a cluster's shared memory
+    (480, 640, 2),      # du/dv beyond it too: global memory
+    (1000, 1000, 2),
+])
+def test_sor_redblack_partitions_equal_plain(dev, H, W, mode):
+    from depth_estimation_tpu_torch.flow import celiu, sor_kernel
+    assert sor_kernel.sor_plan(H, W).mode == mode
+    planes, alpha = _sor_planes(dev, (2,), H, W, seed=H + W)
+    n0 = sor_kernel.sor_redblack.launches
+    du, dv = sor_kernel.sor_redblack(*planes, alpha=alpha, n_sor=7)
+    assert sor_kernel.sor_redblack.launches == n0 + 1
+    ref = celiu.sor_plain(*planes, alpha=alpha, n_sor=7)
+    torch.cuda.synchronize()
+    assert torch.equal(du, ref[0]) and torch.equal(dv, ref[1])
+
+
+@pytest.mark.parametrize("H,W", [(192, 256), (144, 192), (480, 640)])
+def test_sor_redblack_ignores_stale_memory(dev, H, W):
+    # du/dv are allocated empty: the kernel must set every pixel itself,
+    # whatever the allocator hands back (here blocks just filled with NaN)
+    from depth_estimation_tpu_torch.flow import celiu, sor_kernel
+    planes, alpha = _sor_planes(dev, (8,), H, W, seed=H)
+    stale = [torch.full((8, H, W), float("nan"), device=dev) for _ in range(4)]
+    del stale
+    du, dv = sor_kernel.sor_redblack(*planes, alpha=alpha, n_sor=3)
+    ref = celiu.sor_plain(*planes, alpha=alpha, n_sor=3)
+    torch.cuda.synchronize()
+    assert torch.equal(du, ref[0]) and torch.equal(dv, ref[1])
+
+
+@pytest.mark.parametrize("H,W", [(192, 256), (34, 45), (480, 640)])
+def test_sor_barrier_probe_runs_each_mode_uncounted(dev, H, W):
+    # the dependency-floor probe: the plan's launch shape with no
+    # arithmetic, and not a B4 launch
+    from depth_estimation_tpu_torch.flow import sor_kernel
+    n0 = sor_kernel.sor_redblack.launches
+    sor_kernel.sor_barrier_probe(8, H, W, 5)
+    torch.cuda.synchronize()
+    assert sor_kernel.sor_redblack.launches == n0
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,W", [(1, 1), (3, 5), (7, 31), (9, 33), (2, 63),
+                                 (11, 65)])
+def test_match_fused_kernel_ragged_widths_equal_plain(dev, H, W, dt):
+    # W cut inside a thread's pixel pair, inside a tile, and below one tile
+    f1, f2 = _features(dev, H, W, 10, 16, 16, seed=H * 100 + W)
+    for marg, conf in ((False, False), (True, False), (False, True)):
+        got = matching.match_flow_fused(f1, f2, 16, 16, 8, marg, dt, conf)
+        ref = matching.match_flow_fused_plain(f1, f2, 16, 16, marg, dt, conf)
+        torch.cuda.synchronize()
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
 
 
 def test_sor_redblack_rejects_mismatched_planes(dev):
