@@ -13,7 +13,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      paths' shapes: B1 and B3 at the online program's (B=8, f32 and bf16
      storage), B4 at the ground truth's finest level (B=8, 192x256, 40
      iterations, one 8-CTA cluster an image), B2 at the matching core's
-     (B=8, f32 and bf16), B5 at the same (B=8, f32);
+     (B=8, f32 and bf16), B5 at the same (B=8, f32, its norms computed by
+     the kernel, the twin's by the wrapper);
   4. the online program end to end at the car_model's full width (ARDRONE
      640x480 uint8 frames of a forward camera step -> 320x180, trunk
      (3,5,5,8),(8,12,12,10), 16x16 window), B=128, in fast mode, 'warp'
@@ -48,7 +49,12 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      launch's device time from torch.profiler, by level, beside the
      dependency floor (one half-sweep's cluster barrier and boundary-row
      exchange, measured by a no-arithmetic probe, times the level's
-     dependent half-sweeps).
+     dependent half-sweeps); B2 (bf16, f32) and B5 through their wrappers
+     on the plan's pixel blocking and on every other compiled blocking,
+     and their issue floor (SASS instructions a cell of the plan's
+     instantiation, read with cuobjdump, over the card's issue rate).
+
+The build's registers and spills are printed for every kernel.
 
 TF32 is switched off for the whole run (cuDNN convolutions and matmuls run
 in full f32), so that the card computes what the CPU reference computes.
@@ -142,6 +148,7 @@ PROBE_HALF_SWEEPS = 400
 # the tensor cores
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
+CLOCK_HZ = 1.98e9           # the SM boost clock, for issue floors
 
 
 def card_line() -> str:
@@ -149,6 +156,20 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def sm_clock_under(fn, n):
+    """nvidia-smi's SM clock (MHz) and power draw (W), read while n calls of
+    fn queued back to back run on the card."""
+    for _ in range(int(n)):
+        fn()
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True)
+    torch.cuda.synchronize()
+    mhz, watts = out.stdout.strip().splitlines()[0].split(",")
+    return {"clocks.sm": float(mhz), "power.draw": float(watts)}
 
 
 def cuda_ms(fn, reps=5, warmup=1) -> float:
@@ -851,6 +872,95 @@ def phase_version2(dev, report):
     check(rel <= TOL_COST_REL, f"version2 card vs CPU: {rel}")
 
 
+def kernel_label(mangled):
+    """A short name for a kernel's mangled name: the decomposed matcher's
+    template arguments spelled out, other names as they are."""
+    import re
+    m = re.search(r"match_decomposed_kernelI(f|13__nv_bfloat16)Lb([01])ELi"
+                  r"(\d+)ELi(\d+)ELi(\d+)E", mangled)
+    if not m:
+        return mangled
+    dt = "f32" if m.group(1) == "f" else "bf16"
+    order = "dx-major" if m.group(2) == "1" else "dy-major"
+    return (f"match_decomposed<{dt}, {order}, KC={m.group(3)}, "
+            f"{m.group(4)}x{m.group(5)}>")
+
+
+def ptxas_table(log):
+    """Registers and spills of every kernel in the build log (nvcc -Xptxas
+    -v): one row a kernel."""
+    import re
+    rows, source, name, spill = [], "", None, (0, 0)
+    for line in log.splitlines():
+        if line.startswith("== "):
+            source = line[3:].strip()
+        elif m := re.search(r"Function properties for (\S+)", line):
+            name = m.group(1)
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                            r"loads", line):
+            spill = (int(m.group(1)), int(m.group(2)))
+        elif (m := re.search(r"Used (\d+) registers", line)) and name:
+            rows.append(dict(source=source, kernel=kernel_label(name),
+                             registers=int(m.group(1)),
+                             spill_stores=spill[0], spill_loads=spill[1]))
+            name, spill = None, (0, 0)
+    return rows
+
+
+def sass_per_cell(lib, stem, dt, dx_major, kc, rx, ry):
+    """Instructions a cell of one decomposed-matcher instantiation, read
+    from its SASS (cuobjdump --dump-sass of the built library): the largest
+    basic block whose exps are a multiple of rx * ry is the walk's body
+    for halo positions where every pixel's cell lies in its window, one exp
+    a cell, so its length over its exps is the instructions a cell, the
+    loop's counter and branch included. Returns (per cell, the block's
+    opcode counts), or None without cuobjdump."""
+    import re
+    from depth_estimation_tpu_torch.ops import _kernels
+    tool = os.path.join(os.path.dirname(_kernels._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    out = subprocess.run([tool, "--dump-sass", str(lib.paths[stem])],
+                         capture_output=True, text=True, check=True).stdout
+    want = (("If" if dt == torch.float32 else "I13__nv_bfloat16")
+            + f"Lb{int(dx_major)}ELi{kc}ELi{rx}ELi{ry}E")
+    blocks, block, inside = [], [], False
+    for line in out.splitlines():
+        if "Function :" in line:
+            if inside:
+                break
+            inside = "match_decomposed_kernel" in line and want in line
+            continue
+        if not inside:
+            continue
+        if re.match(r"\s*\.L_x_\d+:", line):
+            blocks.append(block)
+            block = []
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(.*?);", line)
+        if not m:
+            continue
+        op = m.group(1).split()
+        op = op[1] if op[0].startswith("@") else op[0]
+        if op != "NOP":
+            block.append(op)
+        if op.split(".")[0] in ("BRA", "EXIT", "RET", "BRX", "JMP", "CALL"):
+            blocks.append(block)
+            block = []
+    blocks.append(block)
+    def exps(b):
+        return sum(o.startswith("MUFU.EX2") for o in b)
+    body = max((b for b in blocks if exps(b) and exps(b) % (rx * ry) == 0),
+               key=len, default=None)
+    if not body:
+        return None
+    counts = {}
+    for o in body:
+        counts[o.split(".")[0]] = counts.get(o.split(".")[0], 0) + 1
+    return len(body) / exps(body), dict(sorted(counts.items(),
+                                               key=lambda kv: -kv[1]))
+
+
 def bound_ms(nbytes, flops):
     """The least time the card could take: the larger of the bytes over the
     HBM rate and the FP32 operations over the FP32 peak. Returns (ms, 'bytes'
@@ -912,7 +1022,7 @@ def b4_over_solve(im1, im2):
 
 
 def phase_timing(dev, card, ests, frames, gt_frames, report):
-    from depth_estimation_tpu_torch.ops import matching, warp
+    from depth_estimation_tpu_torch.ops import _kernels, matching, warp
     from depth_estimation_tpu_torch.geometry3d import undistort as undist
     t1, t2 = frames
     fps = {}
@@ -949,7 +1059,17 @@ def phase_timing(dev, card, ests, frames, gt_frames, report):
         rows[f"warp_banded_{str(dt)[6:]}"] = (k, p)
         print(f"[{card}] B3 warp_banded {str(dt)[6:]}, B={B_MAIN} 165x305x10 "
               f"band 8: kernel {k:.3f} ms, plain {p:.3f} ms", flush=True)
-    # B2 at the matching core's shape, in the same call as B1 above
+    # B2 and B5 at the matching core's shape, in the same call as B1
+    # above: the wrappers on the plan's blocking (B2 with its f32 -> bf16
+    # cast, B5 with its norms, which the kernel now computes), then every
+    # compiled blocking through the same wrappers
+    from depth_estimation_tpu_torch.ops import matching_experimental as mexp
+    plan = matching.match_plan(16, 16, 10)
+    print(f"B2/B5 plan at 16x16, K=10: {plan.rx}x{plan.ry} pixels a thread, "
+          f"{plan.tx}x{plan.ty} threads, tile {plan.tile[0]}x{plan.tile[1]}, "
+          f"halo {plan.smem} B, {matching.resident_warps(plan)} warps an SM",
+          flush=True)
+    blockings = {}
     for dt in (torch.float32, torch.bfloat16):
         k = cuda_ms(lambda: matching.match_flow_fast(f1, f2, 16, 16, 32, dt))
         p = cuda_ms(lambda: matching.match_flow_fast_plain(f1, f2, 16, 16, dt),
@@ -958,19 +1078,27 @@ def phase_timing(dev, card, ests, frames, gt_frames, report):
         print(f"[{card}] B2 match_fast {str(dt)[6:]}, B={B_MAIN} 150x290x10 "
               f"16x16: kernel {k:.3f} ms, plain {p:.1f} ms (B1 same shape: "
               f"{rows['match_fused_' + str(dt)[6:]][0]:.3f} ms)", flush=True)
-    # B5 at the same shape: the kernel alone (on norms computed once) and
-    # the wrapper (norms included), against its twin on the same norms
-    from depth_estimation_tpu_torch.ops import matching_experimental as mexp
-    a, b, n1, n2 = mexp._norms(f1, f2)
-    k = cuda_ms(lambda: mexp._match_flow_throughput_cuda(a, b, n1, n2, 16, 16))
-    w = cuda_ms(lambda: mexp.match_flow_throughput(f1, f2, 16, 16))
-    p = cuda_ms(lambda: mexp.match_flow_throughput_plain(a, b, n1, n2, 16, 16),
-                reps=3)
+    k = cuda_ms(lambda: mexp.match_flow_throughput(f1, f2, 16, 16))
+    p = cuda_ms(lambda: mexp.match_flow_throughput_plain(
+        *mexp._norms(f1, f2), 16, 16), reps=3)
     rows["match_throughput"] = (k, p)
-    rows["match_throughput_wrapper"] = (w, p)
     print(f"[{card}] B5 match_throughput float32, B={B_MAIN} 150x290x10 16x16: "
-          f"kernel {k:.3f} ms, with the norms {w:.3f} ms, plain {p:.1f} ms "
-          f"(B2 same shape: {rows['match_fast_float32'][0]:.3f} ms)", flush=True)
+          f"kernel {k:.3f} ms with its norms, plain {p:.1f} ms (B2 same "
+          f"shape: {rows['match_fast_float32'][0]:.3f} ms)", flush=True)
+    for rx, ry in matching.BLOCKINGS[10]:
+        bp = matching.plan_for(16, 16, 10, (rx, ry))
+        times = [cuda_ms(lambda: matching._match_flow_fast_cuda(
+                     f1, f2, 16, 16, dt, bp))
+                 for dt in (torch.bfloat16, torch.float32)]
+        times.append(cuda_ms(lambda: mexp._match_flow_throughput_cuda(
+            f1, f2, 16, 16, bp)))
+        blockings[f"{rx}x{ry}"] = dict(zip(("b2_bf16", "b2_f32", "b5"), times),
+                                       tile=list(bp.tile), threads=bp.tx * bp.ty,
+                                       warps_an_sm=matching.resident_warps(bp))
+        print(f"[{card}] blocking {rx}x{ry} (tile {bp.tile[0]}x{bp.tile[1]}, "
+              f"{bp.tx * bp.ty} threads, {matching.resident_warps(bp)} warps "
+              f"an SM): B2 bf16 {times[0]:.3f} ms, B2 f32 {times[1]:.3f} ms, "
+              f"B5 {times[2]:.3f} ms", flush=True)
     # B4 at the ground truth's finest level, and one config2 solve
     from depth_estimation_tpu_torch.flow import celiu, sor_kernel
     planes, alpha = sor_planes(gen, GT_B, GT_H, GT_W, dev)
@@ -1021,9 +1149,7 @@ def phase_timing(dev, card, ests, frames, gt_frames, report):
         "match_fused_float32": matcher_bound(f1, f2, 16, 16, 5, 3 * 10 + 5),
         "match_fast": matcher_bound(f1.to(torch.bfloat16), f2.to(torch.bfloat16),
                                     16, 16, 4, 2 * 10 + 3 + 7),
-        "match_throughput": matcher_bound(
-            f1, f2, 16, 16, 4, 2 * 10 + 3 + 7,
-            (n1.numel() + n2.numel()) * 4),
+        "match_throughput": matcher_bound(f1, f2, 16, 16, 4, 2 * 10 + 3 + 7),
         "warp_banded": bound_ms(
             imgs.numel() * 4 + xs.numel() * 4 + ys.numel() * 4
             + imgs.numel() * 4, imgs.numel() * 7),
@@ -1032,9 +1158,43 @@ def phase_timing(dev, card, ests, frames, gt_frames, report):
     }
     for name, (b, by) in bounds.items():
         print(f"bound {name}: {b:.4f} ms ({by})", flush=True)
+    # the SM clock while B2 (f32) runs back to back, read by nvidia-smi
+    # halfway through ~1 s of queued launches
+    clock = sm_clock_under(
+        lambda: matching.match_flow_fast(f1, f2, 16, 16, 32, torch.float32),
+        1000 / rows["match_fast_float32"][0])
+    print(f"[{card}] SM clock and power draw with B2 running: "
+          f"{clock['clocks.sm']} MHz, {clock['power.draw']} W", flush=True)
+    # B2's and B5's issue floor: the SASS instructions a cell of the plan's
+    # instantiation, over 132 SMs x 128 lanes at 1.98 GHz (and at the clock
+    # read above)
+    lib = _kernels.library()
+    cells = f1.shape[0] * f1.shape[1] * f1.shape[2] * 16 * 16
+    floors = {}
+    for name, stem, dt, dxm in (("match_fast", "match_fast", torch.bfloat16,
+                                 True),
+                                ("match_fast_float32", "match_fast",
+                                 torch.float32, True),
+                                ("match_throughput", "match_throughput",
+                                 torch.float32, False)):
+        got = sass_per_cell(lib, stem, dt, dxm, 10, plan.rx, plan.ry)
+        if got is None:
+            print(f"issue floor {name}: not measured (no cuobjdump or body "
+                  f"not found)", flush=True)
+            continue
+        per_cell, ops = got
+        ms = 1e3 * per_cell * cells / (132 * 128 * CLOCK_HZ)
+        at_clock = ms * CLOCK_HZ / (1e6 * clock["clocks.sm"])
+        floors[name] = dict(per_cell=per_cell, ms=ms, ms_at_read_clock=at_clock,
+                            ops=ops)
+        print(f"issue floor {name}: {per_cell:.2f} SASS instructions a cell "
+              f"({plan.rx}x{plan.ry} body: {ops}) -> {ms:.4f} ms at 1.98 GHz, "
+              f"{at_clock:.4f} ms at {clock['clocks.sm']} MHz", flush=True)
     report["timing"] = dict(card=card, fps=fps, kernels_ms=rows,
-                            bounds_ms=bounds, b4_solve=b4_solve)
-    return rows, bounds, b4_solve
+                            bounds_ms=bounds, b4_solve=b4_solve,
+                            plan=plan._asdict(), blockings=blockings,
+                            issue_floors=floors, clock_under_b2=clock)
+    return rows, bounds, b4_solve, floors
 
 
 def main() -> int:
@@ -1059,11 +1219,11 @@ def main() -> int:
     print(f"build: {len(lib.paths)} libraries, nvcc in parallel "
           f"{lib.build_seconds:.1f} s ({time.perf_counter() - t0:.1f} s with "
           f"loading)", flush=True)
-    for line in lib.log.splitlines():
-        if line.startswith("=="):
-            print("  " + line[3:])
-        elif "registers" in line or "spill" in line:
-            print("  ptxas " + line.split("ptxas info    :")[-1].strip())
+    report["ptxas"] = ptxas_table(lib.log)
+    for row in report["ptxas"]:
+        print(f"  ptxas {row['source']}: {row['kernel']}: {row['registers']} "
+              f"registers, spill stores {row['spill_stores']} B, loads "
+              f"{row['spill_loads']} B", flush=True)
 
     errs = phase_kernels(dev, report)
 
@@ -1076,8 +1236,8 @@ def main() -> int:
     phase_multiscale(dev, card, report)
     phase_radial(dev, card, report)
     phase_version2(dev, report)
-    rows, bounds, b4_solve = phase_timing(dev, card, ests, frames, gt_frames,
-                                          report)
+    rows, bounds, b4_solve, floors = phase_timing(dev, card, ests, frames,
+                                                  gt_frames, report)
 
     def entry(name, fn, src, replaces, row):
         return {"name": fn, "route": "cuda",
@@ -1110,6 +1270,13 @@ def main() -> int:
         solve_launches=b4_solve["launches"],
         solve_device_ms=b4_solve["device_ms"],
         solve_dependency_floor_ms=b4_solve["floor_ms"])
+    # B2 (bf16) and B5 beside their issue floor
+    for name, key in (("match_flow_fast", "match_fast"),
+                      ("match_flow_throughput", "match_throughput")):
+        if key in floors:
+            next(k for k in kernels if k["name"] == name).update(
+                issue_floor_ms=floors[key]["ms"],
+                sass_per_cell=floors[key]["per_cell"])
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} not launched on its path")
     report["kernels"] = kernels

@@ -1,6 +1,7 @@
 """Build and load the package's CUDA kernels.
 
-The sources in ``csrc/*.cu`` expose a plain C interface. They are compiled
+The sources in ``csrc/*.cu`` (with the headers they include from
+``csrc/``) expose a plain C interface. They are compiled
 at first use with nvcc for Hopper (``sm_90a``), one nvcc process per source,
 all started together, each into its own shared library under
 ``_build/<hash of the sources and flags>/``, and loaded with ctypes; the
@@ -55,13 +56,14 @@ SIGNATURES = {
         "sor_redblack_probe_launch": [_P, _P] + [_I] * 7 + [_P],
     },
     "match_fast": {
-        # f1, f2, idx, ey, ex, pmax, B, H, W, K, maxh, maxw, is_bf16, stream
-        "match_fast_launch": [_P, _P, _P, _P, _P, _P,
-                              _I, _I, _I, _I, _I, _I, _I, _P],
+        # f1, f2, idx, ey, ex, pmax, B, H, W, K, maxh, maxw, is_bf16, rx,
+        # ry, tx_n, ty_n, stream
+        "match_fast_launch": [_P] * 6 + [_I] * 11 + [_P],
     },
     "match_throughput": {
-        # f1, f2, n1, n2, idx, ey, ex, pmax, B, H, W, K, maxh, maxw, stream
-        "match_throughput_launch": [_P] * 8 + [_I] * 6 + [_P],
+        # f1, f2, idx, ey, ex, pmax, B, H, W, K, maxh, maxw, rx, ry, tx_n,
+        # ty_n, stream
+        "match_throughput_launch": [_P] * 6 + [_I] * 10 + [_P],
     },
 }
 SOURCES = tuple(f"{stem}.cu" for stem in SIGNATURES)
@@ -77,10 +79,13 @@ def _nvcc() -> str:
 
 
 def _digest() -> str:
+    """Hash of the flags and of every file under csrc/, so that an edited
+    header a source includes rebuilds as an edited source does."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
+    for path in sorted(CSRC.iterdir()):
+        if path.is_file():
+            h.update(path.name.encode())
+            h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 

@@ -17,6 +17,8 @@ is the centered displacement ``(dy - halfh1, dx - halfw1)``.
     running max over all cells, visited dx-major. On a CUDA tensor it
     launches ``csrc/match_fast.cu`` (kernel B2, the port of the Pallas
     ``_fast_kernel``); on a CPU tensor it runs ``match_flow_fast_plain``.
+    ``match_plan`` is the launch's rule on the window and K: the pixels a
+    thread computes and the output tile a block stages the halo of.
 
 Numerics of B1, shared by its kernel and plain version, and with the
 reference: features are stored in ``dtype`` (f32 or bf16) and upcast to f32
@@ -30,7 +32,8 @@ ties the best.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from functools import lru_cache
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -239,6 +242,95 @@ match_flow_fused.launches = 0
 # Kernel B2: norm-decomposed matcher
 # ---------------------------------------------------------------------------
 
+# The launch plan of B2 and B5 (csrc/match_decomposed.cuh, which holds the
+# same rules). Channel counts are rounded up to a compiled bound; each bound
+# has the (rx, ry) pixel blockings listed here compiled, the first being the
+# one the plan takes (the others are there to be timed against it).
+KC_BUCKETS = (4, 8, 10, 16, 32)
+BLOCKINGS = {4: ((2, 2),), 8: ((2, 2),),
+             10: ((2, 2), (4, 2), (4, 1), (2, 1)),
+             16: ((2, 2),), 32: ((4, 1),)}
+# output tiles (rows, columns) tried in order: the first whose halo fits
+# and leaves MIN_WARPS warps resident on an SM, else the fitting one with
+# the most resident warps
+TILES = ((32, 32), (16, 32), (16, 16), (8, 16), (8, 8))
+SMEM_LIMIT = 227 * 1024             # shared memory a block may use
+SMEM_PER_SM = 228 * 1024            # and an SM holds, 1 KB a block reserved
+MIN_WARPS = 8
+
+
+class MatchPlan(NamedTuple):
+    rx: int                 # output pixels a thread, across
+    ry: int                 # and down
+    tx: int                 # threads across a tile
+    ty: int                 # and down
+    smem: int               # bytes of the staged halo
+
+    @property
+    def tile(self) -> Tuple[int, int]:
+        return self.ty * self.ry, self.tx * self.rx
+
+
+def channel_bound(K: int) -> int:
+    """K rounded up to a compiled channel bound."""
+    for kc in KC_BUCKETS:
+        if K <= kc:
+            return kc
+    raise ValueError(f"the decomposed matchers support K <= {KC_BUCKETS[-1]}")
+
+
+def halo_bytes(kc: int, ry: int, tile_h: int, tile_w: int, maxh: int,
+               maxw: int) -> int:
+    """Shared memory of a tile's f2 halo: positions of kc channels and
+    |f2|^2, padded to an odd number of float4s, rows of ``cols`` positions
+    at an odd thread-row stride (row R starts at R * pitch + R // ry)."""
+    rows, cols = tile_h + maxh - 1, tile_w + maxw - 1
+    pitch = cols + ((ry * cols) & 1)
+    slot = (((kc + 4) // 4) | 1) * 4
+    return ((rows - 1) * pitch + (rows - 1) // ry + cols) * slot * 4
+
+
+def resident_warps(plan: MatchPlan) -> int:
+    """Warps an SM holds at once, by shared memory and thread count."""
+    threads = plan.tx * plan.ty
+    blocks = min(SMEM_PER_SM // (plan.smem + 1024), 32, 2048 // threads)
+    return blocks * threads // 32
+
+
+def plan_for(maxh: int, maxw: int, K: int,
+             blocking: Tuple[int, int]) -> Optional[MatchPlan]:
+    """The tile for one blocking (see TILES), or None where no tile's halo
+    fits in shared memory."""
+    kc = channel_bound(K)
+    rx, ry = blocking
+    best = None
+    for th, tw in TILES:
+        smem = halo_bytes(kc, ry, th, tw, maxh, maxw)
+        if smem > SMEM_LIMIT:
+            continue
+        plan = MatchPlan(rx, ry, tw // rx, th // ry, smem)
+        if resident_warps(plan) >= MIN_WARPS:
+            return plan
+        if best is None or resident_warps(plan) > resident_warps(best):
+            best = plan
+    return best
+
+
+@lru_cache(maxsize=None)
+def match_plan(maxh: int, maxw: int, K: int) -> Optional[MatchPlan]:
+    """The launch plan of B2 and B5 for a maxh x maxw window on K channels:
+    the channel bound's first blocking on its tile, or None where the halo
+    does not fit (the wrappers then raise). Memoised: a program asks for
+    one window again and again."""
+    return plan_for(maxh, maxw, K, BLOCKINGS[channel_bound(K)][0])
+
+
+def _unsupported(name: str, maxh: int, maxw: int, K: int) -> RuntimeError:
+    return RuntimeError(
+        f"{name}: unsupported configuration: the f2 halo of a {maxh}x{maxw} "
+        f"window at K={K} does not fit in {SMEM_LIMIT} bytes of shared memory")
+
+
 def _dot_k_order(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """sum_k a * b over the last dim, accumulated in k order in f32."""
     acc = a[..., 0] * b[..., 0]
@@ -291,7 +383,8 @@ def match_flow_fast_plain(f1, f2, maxh: int, maxw: int, dtype=torch.float32):
     return idx, sy / s, sx / s, 1.0 / s
 
 
-def _match_flow_fast_cuda(f1, f2, maxh, maxw, dtype):
+def _match_flow_fast_cuda(f1, f2, maxh, maxw, dtype, plan=None):
+    """Kernel B2 on CUDA tensors, on ``plan`` (default: ``match_plan``)."""
     f1 = f1.to(dtype).contiguous()
     f2 = f2.to(dtype).contiguous()
     dts = (torch.float32, torch.bfloat16)
@@ -302,13 +395,17 @@ def _match_flow_fast_cuda(f1, f2, maxh, maxw, dtype):
     B, H, W, K = f1.shape
     if K > MAX_CHANNELS:
         raise ValueError(f"match_fast kernel supports K <= {MAX_CHANNELS}")
+    plan = plan or match_plan(maxh, maxw, K)
+    if plan is None:
+        raise _unsupported("match_fast", maxh, maxw, K)
     idx = torch.empty((B, H, W), dtype=torch.int32, device=f1.device)
     ey, ex, pmax = (torch.empty((B, H, W), device=f1.device) for _ in range(3))
     lib = _kernels.library()
     with torch.cuda.device(f1.device):
         lib.call("match_fast_launch", f1.data_ptr(), f2.data_ptr(),
                  idx.data_ptr(), ey.data_ptr(), ex.data_ptr(), pmax.data_ptr(),
-                 B, H, W, K, maxh, maxw, int(dtype == torch.bfloat16))
+                 B, H, W, K, maxh, maxw, int(dtype == torch.bfloat16),
+                 plan.rx, plan.ry, plan.tx, plan.ty)
     match_flow_fast.launches += 1
     return idx, ey, ex, pmax
 
@@ -326,9 +423,8 @@ def match_flow_fast(
     differently. ``block_rows`` is accepted for signature parity with the
     reference and has no effect. CUDA tensors go through kernel B2 (counted
     in ``match_flow_fast.launches``; it takes K <= 32, and raises
-    RuntimeError where the window's (8 + maxh - 1) x (32 + maxw - 1) f2
-    halo does not fit in shared memory), CPU tensors through
-    ``match_flow_fast_plain``."""
+    RuntimeError where ``match_plan`` finds no tile whose f2 halo fits in
+    shared memory), CPU tensors through ``match_flow_fast_plain``."""
     squeeze = f1.ndim == 3
     if squeeze:
         f1, f2 = f1[None], f2[None]

@@ -3,12 +3,13 @@
 Both satisfy the (idx, ey, ex, pmax) contract of ``ops.matching``'s fused
 matchers; no pipeline code imports them.
 
-  * ``match_flow_throughput`` — kernel B2's function with f32 storage, the
-    squared norms computed outside the kernel and the window visited
-    dy-major. On a CUDA tensor it launches the hand-written kernel
-    ``csrc/match_throughput.cu`` (kernel B5, the port of the Pallas
-    ``_lanes_kernel``); on a CPU tensor it runs
-    ``match_flow_throughput_plain``, the same arithmetic in plain torch.
+  * ``match_flow_throughput`` — kernel B2's function with f32 storage and
+    the window visited dy-major. On a CUDA tensor it launches the
+    hand-written kernel ``csrc/match_throughput.cu`` (kernel B5, the port
+    of the Pallas ``_lanes_kernel``), which computes the squared norms
+    itself, on ``matching.match_plan``; on a CPU tensor it computes the
+    norms here and runs ``match_flow_throughput_plain``, the same
+    arithmetic in plain torch.
   * ``match_flow_mxu`` — the cost as |f1|^2 + |f2|^2 - 2<f1, f2>, the cross
     terms of each window row as one batched matrix product of a row block
     against the shifted rows, the window's band read off the product, then
@@ -23,7 +24,8 @@ from typing import Tuple
 import torch
 
 from . import _kernels
-from .matching import MAX_CHANNELS, NEG_INF, _dot_k_order, _middle
+from .matching import (MAX_CHANNELS, NEG_INF, _dot_k_order, _middle,
+                       _unsupported, match_plan)
 
 
 # ---------------------------------------------------------------------------
@@ -76,22 +78,26 @@ def match_flow_throughput_plain(f1, f2, n1, n2, maxh: int, maxw: int):
     return idx, sy / s, sx / s, 1.0 / s
 
 
-def _match_flow_throughput_cuda(f1, f2, n1, n2, maxh, maxw):
-    for name, t, nd in (("f1", f1, 4), ("f2", f2, 4), ("n1", n1, 3),
-                        ("n2", n2, 3)):
-        _kernels.check_cuda_tensor(name, t, (torch.float32,), nd)
-        if t.device != f1.device:
-            raise ValueError("f1, f2 and the norms must be on the same device")
+def _match_flow_throughput_cuda(f1, f2, maxh, maxw, plan=None):
+    """Kernel B5 on f32 CUDA tensors, on ``plan`` (default:
+    ``matching.match_plan``); the kernel computes the norms."""
+    for name, t in (("f1", f1), ("f2", f2)):
+        _kernels.check_cuda_tensor(name, t, (torch.float32,), 4)
+    if f2.device != f1.device:
+        raise ValueError("f1 and f2 must be on the same device")
     B, H, W, K = f1.shape
     if K > MAX_CHANNELS:
         raise ValueError(f"match_throughput kernel supports K <= {MAX_CHANNELS}")
+    plan = plan or match_plan(maxh, maxw, K)
+    if plan is None:
+        raise _unsupported("match_throughput", maxh, maxw, K)
     idx = torch.empty((B, H, W), dtype=torch.int32, device=f1.device)
     ey, ex, pmax = (torch.empty((B, H, W), device=f1.device) for _ in range(3))
     lib = _kernels.library()
     with torch.cuda.device(f1.device):
         lib.call("match_throughput_launch", f1.data_ptr(), f2.data_ptr(),
-                 n1.data_ptr(), n2.data_ptr(), idx.data_ptr(), ey.data_ptr(),
-                 ex.data_ptr(), pmax.data_ptr(), B, H, W, K, maxh, maxw)
+                 idx.data_ptr(), ey.data_ptr(), ex.data_ptr(), pmax.data_ptr(),
+                 B, H, W, K, maxh, maxw, plan.rx, plan.ry, plan.tx, plan.ty)
     match_flow_throughput.launches += 1
     return idx, ey, ex, pmax
 
@@ -102,16 +108,16 @@ def match_flow_throughput(
 ) -> Tuple[torch.Tensor, ...]:
     """Throughput-variant fused matcher: ``match_flow_fast``'s (idx, ey, ex,
     pmax) contract on f32 features. f1 ([B,] H, W, K), f2 ([B,] H+maxh-1,
-    W+maxw-1, K). The squared norms are computed here, in k order, and
-    handed to the kernel (or its twin); cells are visited dy-major, so exact
+    W+maxw-1, K). The squared norms are summed in k order, by the kernel
+    or, for the twin, here; cells are visited dy-major, so exact
     ties go to the first cell in flat order (the middle cell first, where it
     ties the best). ``block_rows`` and ``block_cols`` are accepted for
     signature parity with the reference and have no effect, except that a
     ``block_cols`` that is not a multiple of 8 raises, as the reference
     does. CUDA tensors go through kernel B5 (counted in
     ``match_flow_throughput.launches``; it takes K <= 32, and raises
-    RuntimeError where the window's (8 + maxh - 1) x (32 + maxw - 1) f2 halo
-    does not fit in shared memory), CPU tensors through
+    RuntimeError where ``matching.match_plan`` finds no tile whose f2 halo
+    fits in shared memory), CPU tensors through
     ``match_flow_throughput_plain``."""
     if block_cols % 8:
         raise ValueError(f"block_cols must be a multiple of 8, got {block_cols}")
@@ -125,13 +131,11 @@ def match_flow_throughput(
             or f2.shape[3] != f1.shape[3]:
         raise ValueError(f"shapes {tuple(f1.shape)} / {tuple(f2.shape)} do "
                          f"not match a {maxh}x{maxw} window")
-    a, b, n1, n2 = _norms(f1, f2)
     if f1.is_cuda:
-        outs = _match_flow_throughput_cuda(a.contiguous(), b.contiguous(),
-                                           n1.contiguous(), n2.contiguous(),
-                                           maxh, maxw)
+        outs = _match_flow_throughput_cuda(f1.float().contiguous(),
+                                           f2.float().contiguous(), maxh, maxw)
     else:
-        outs = match_flow_throughput_plain(a, b, n1, n2, maxh, maxw)
+        outs = match_flow_throughput_plain(*_norms(f1, f2), maxh, maxw)
     if squeeze:
         outs = tuple(o[0] for o in outs)
     return outs

@@ -144,7 +144,6 @@ def instrument_throughput_core(totals):
     return wrap([(images, "scale_batched_device", "resize"),
                  (flow_model.FlowModel, "features", "trunk"),
                  (mexp, "match_flow_throughput", "match_B5"),
-                 (mexp, "_norms", "match_B5.norms"),
                  (mexp, "_match_flow_throughput_cuda", "match_B5.kernel")],
                 totals)
 

@@ -4,8 +4,10 @@ Shapes here are chosen to reach the kernels' edges rather than the main
 paths' shapes (``chip_smoke.py`` covers those): ragged output tiles,
 channel counts between the compiled sizes, non-square and 16-row windows,
 bands of 0 and 1, taps on the image border, 1x1 and odd SOR images, 0, 1
-and 40 SOR iterations, leading batch dims, B5 at K = 1 and 32, a 1x1
-window and batches of 1 and 130, and halos too large for shared memory.
+and 40 SOR iterations, leading batch dims, B2 and B5 at K = 1 to 32, 1x1
+to 20x7 windows, batches of 1 and 130, widths that cut a thread's pixel
+block or a tile, every compiled pixel blocking, and halos too large for
+shared memory.
 B4's cluster partitions are held at every level shape of a config2 solve,
 at strips cut unevenly, at images shorter than a cluster, at images whose
 planes (240x320) or flows (480x640, 1000x1000) exceed the cluster's
@@ -248,28 +250,84 @@ def test_sor_redblack_rejects_mismatched_planes(dev):
                                 n_sor=3)
 
 
+def _check_decomposed(got, ref, f1, f2, maxh, maxw, dt=None):
+    """A decomposed matcher (B2 or B5) against its twin: same arithmetic in
+    the same order, so only the exp implementations may differ; WTA indices
+    agree except at near-ties of the logit."""
+    B, H, W = f1.shape[:3]
+    assert got[0].dtype == torch.int32 and tuple(got[0].shape) == (B, H, W)
+    if maxh * maxw > 1:
+        costs = matching.match_ssd(f1, f2, maxh, maxw, dt)
+        top2 = torch.topk(-costs, 2, dim=-1).values
+        flip = got[0] != ref[0]
+        assert bool(((top2[..., 0] - top2[..., 1])[flip] < 1e-4).all())
+    else:
+        assert bool((got[0] == 0).all())
+    for a, b in zip(got[1:], ref[1:]):
+        assert torch.isfinite(a).all()
+        assert (a - b).abs().max().item() <= 1e-5
+
+
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("K", [3, 10, 17])
-@pytest.mark.parametrize("maxh,maxw", [(4, 4), (6, 4), (5, 3), (9, 13),
-                                       (16, 16), (20, 7)])
+@pytest.mark.parametrize("K", [1, 3, 10, 17, 32])
+@pytest.mark.parametrize("maxh,maxw", [(1, 1), (3, 5), (4, 4), (6, 4), (5, 3),
+                                       (9, 13), (16, 16), (20, 7)])
 def test_match_fast_kernel_matches_plain(dev, maxh, maxw, K, dt):
-    H, W = 13, 37                      # ragged against the 8x32 output tile
+    H, W = 13, 37                      # ragged against the 32x32 output tile
     f1, f2 = _features(dev, H, W, K, maxh, maxw, seed=maxh * 100 + K + 7)
     n0 = matching.match_flow_fast.launches
     got = matching.match_flow_fast(f1, f2, maxh, maxw, 8, dt)
     assert matching.match_flow_fast.launches == n0 + 1
     ref = matching.match_flow_fast_plain(f1, f2, maxh, maxw, dt)
     torch.cuda.synchronize()
-    assert got[0].dtype == torch.int32 and tuple(got[0].shape) == (2, H, W)
-    # same arithmetic in the same order; only the exp implementations
-    # differ, so WTA indices agree except at near-ties of the logit
-    costs = matching.match_ssd(f1, f2, maxh, maxw, dt)
-    top2 = torch.topk(-costs, 2, dim=-1).values
-    flip = got[0] != ref[0]
-    assert bool(((top2[..., 0] - top2[..., 1])[flip] < 1e-4).all())
-    for a, b in zip(got[1:], ref[1:]):
-        assert torch.isfinite(a).all()
-        assert (a - b).abs().max().item() <= 1e-5
+    _check_decomposed(got, ref, f1, f2, maxh, maxw, dt)
+
+
+# W cut inside a thread's pixel block, inside a tile and below one tile; H
+# cut inside a thread's pixel rows
+RAGGED = [(1, 1), (3, 5), (7, 31), (9, 33), (2, 63), (11, 65)]
+RAGGED_WINDOWS = [(1, 1), (3, 5), (20, 7), (16, 16)]
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("maxh,maxw", RAGGED_WINDOWS)
+@pytest.mark.parametrize("H,W", RAGGED)
+def test_match_fast_kernel_ragged_equal_plain(dev, H, W, maxh, maxw, dt):
+    f1, f2 = _features(dev, H, W, 10, maxh, maxw, seed=H * 100 + W + maxh)
+    n0 = matching.match_flow_fast.launches
+    got = matching.match_flow_fast(f1, f2, maxh, maxw, 8, dt)
+    assert matching.match_flow_fast.launches == n0 + 1
+    ref = matching.match_flow_fast_plain(f1, f2, maxh, maxw, dt)
+    torch.cuda.synchronize()
+    _check_decomposed(got, ref, f1, f2, maxh, maxw, dt)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [1, 3, 130])
+def test_match_fast_kernel_batches_equal_plain(dev, B, dt):
+    g = torch.Generator(device=dev).manual_seed(B)
+    f1 = 0.5 * torch.randn(B, 11, 65, 10, generator=g, device=dev)
+    f2 = 0.5 * torch.randn(B, 26, 80, 10, generator=g, device=dev)
+    n0 = matching.match_flow_fast.launches
+    got = matching.match_flow_fast(f1, f2, 16, 16, 8, dt)
+    assert matching.match_flow_fast.launches == n0 + 1
+    ref = matching.match_flow_fast_plain(f1, f2, 16, 16, dt)
+    torch.cuda.synchronize()
+    _check_decomposed(got, ref, f1, f2, 16, 16, dt)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("blocking", [b for bs in matching.BLOCKINGS.values()
+                                      for b in bs])
+def test_match_fast_every_compiled_blocking_equals_plain(dev, blocking, dt):
+    # the blockings chip_smoke.py times against the plan's, at K=10 and at
+    # ragged widths
+    f1, f2 = _features(dev, 11, 65, 10, 16, 16, seed=sum(blocking))
+    plan = matching.plan_for(16, 16, 10, blocking)
+    got = matching._match_flow_fast_cuda(f1, f2, 16, 16, dt, plan)
+    ref = matching.match_flow_fast_plain(f1, f2, 16, 16, dt)
+    torch.cuda.synchronize()
+    _check_decomposed(got, ref, f1, f2, 16, 16, dt)
 
 
 def test_match_fast_kernel_rejects_what_it_does_not_take(dev):
@@ -281,41 +339,59 @@ def test_match_fast_kernel_rejects_what_it_does_not_take(dev):
     with pytest.raises(RuntimeError, match="unsupported configuration"):
         matching.match_flow_fast(f1, f2, 64, 64)          # halo > shared memory
     assert matching.match_flow_fast.launches == n0
+    # a plan the launcher was not built for is refused on the C side
+    f1, f2 = _features(dev, 8, 8, 10, 4, 4, seed=0)
+    bad = matching.MatchPlan(3, 1, 8, 8, 0)
+    with pytest.raises(RuntimeError, match="unsupported configuration"):
+        matching._match_flow_fast_cuda(f1, f2, 4, 4, torch.float32, bad)
 
 
-@pytest.mark.parametrize("B", [1, 3, 130])
-@pytest.mark.parametrize("K", [1, 10, 32])
-@pytest.mark.parametrize("maxh,maxw", [(1, 1), (3, 5), (16, 16)])
-def test_match_throughput_kernel_matches_plain(dev, maxh, maxw, K, B):
+def _throughput_case(dev, B, H, W, K, maxh, maxw, seed):
     from depth_estimation_tpu_torch.ops import matching_experimental as mexp
-    H, W = 13, 37                      # ragged against the 8x32 output tile
-    g = torch.Generator(device=dev).manual_seed(maxh * 1000 + K * 10 + B)
+    g = torch.Generator(device=dev).manual_seed(seed)
     f1 = 0.5 * torch.randn(B, H, W, K, generator=g, device=dev)
     f2 = 0.5 * torch.randn(B, H + maxh - 1, W + maxw - 1, K, generator=g,
                            device=dev)
     n0 = mexp.match_flow_throughput.launches
     got = mexp.match_flow_throughput(f1, f2, maxh, maxw)
     assert mexp.match_flow_throughput.launches == n0 + 1
-    a, b, n1, n2 = mexp._norms(f1, f2)
-    ref = mexp.match_flow_throughput_plain(a, b, n1, n2, maxh, maxw)
+    # the twin on the norms the wrapper hands it on the CPU; the kernel
+    # sums them itself in the same order
+    ref = mexp.match_flow_throughput_plain(*mexp._norms(f1, f2), maxh, maxw)
     torch.cuda.synchronize()
-    assert got[0].dtype == torch.int32 and tuple(got[0].shape) == (B, H, W)
-    # same arithmetic in the same order on the same norms; only the exp
-    # implementations may differ, so WTA indices agree except at near-ties
-    costs = matching.match_ssd(f1, f2, maxh, maxw)
-    if maxh * maxw > 1:
-        top2 = torch.topk(-costs, 2, dim=-1).values
-        flip = got[0] != ref[0]
-        assert bool(((top2[..., 0] - top2[..., 1])[flip] < 1e-4).all())
-    else:
-        assert bool((got[0] == 0).all())
-    for x, y in zip(got[1:], ref[1:]):
-        assert torch.isfinite(x).all()
-        assert (x - y).abs().max().item() <= 1e-5
+    _check_decomposed(got, ref, f1, f2, maxh, maxw)
+    return f1, f2, got
+
+
+@pytest.mark.parametrize("B", [1, 3, 130])
+@pytest.mark.parametrize("K", [1, 3, 10, 17, 32])
+@pytest.mark.parametrize("maxh,maxw", [(1, 1), (3, 5), (20, 7), (16, 16)])
+def test_match_throughput_kernel_matches_plain(dev, maxh, maxw, K, B):
+    from depth_estimation_tpu_torch.ops import matching_experimental as mexp
+    f1, f2, got = _throughput_case(dev, B, 13, 37, K, maxh, maxw,
+                                   seed=maxh * 1000 + K * 10 + B)
     # the unbatched form gives the first item
     one = mexp.match_flow_throughput(f1[0], f2[0], maxh, maxw)
     for x, y in zip(one, got):
         assert torch.equal(x, y[0])
+
+
+@pytest.mark.parametrize("maxh,maxw", RAGGED_WINDOWS)
+@pytest.mark.parametrize("H,W", RAGGED)
+def test_match_throughput_kernel_ragged_equal_plain(dev, H, W, maxh, maxw):
+    _throughput_case(dev, 3, H, W, 10, maxh, maxw, seed=H * 100 + W + maxh)
+
+
+@pytest.mark.parametrize("blocking", [b for bs in matching.BLOCKINGS.values()
+                                      for b in bs])
+def test_match_throughput_every_compiled_blocking_equals_plain(dev, blocking):
+    from depth_estimation_tpu_torch.ops import matching_experimental as mexp
+    f1, f2 = _features(dev, 11, 65, 10, 16, 16, seed=sum(blocking) + 1)
+    plan = matching.plan_for(16, 16, 10, blocking)
+    got = mexp._match_flow_throughput_cuda(f1, f2, 16, 16, plan)
+    ref = mexp.match_flow_throughput_plain(*mexp._norms(f1, f2), 16, 16)
+    torch.cuda.synchronize()
+    _check_decomposed(got, ref, f1, f2, 16, 16)
 
 
 def test_match_throughput_kernel_rejects_what_it_does_not_take(dev):
