@@ -14,7 +14,11 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      storage), B4 at the ground truth's finest level (B=8, 192x256, 40
      iterations, one 8-CTA cluster an image), B2 at the matching core's
      (B=8, f32 and bf16), B5 at the same (B=8, f32, its norms computed by
-     the kernel, the twin's by the wrapper);
+     the kernel, the twin's by the wrapper); then the shapes beyond the
+     main paths (ROADMAP C24) at B=2, 12x40 outputs: B1 in conf and marg
+     mode, f32 and bf16, at windows 17x4, 24x24, 32x32 and 64x64 (K=10)
+     and at K 33 and 64 (16x16); B2 (f32, bf16) and B5 at 64x64 (K 1, 32),
+     48x48 (K 17), 3x500 and 500x3 (K 10, 32) and K 33 and 64 (16x16);
   4. the online program end to end at the car_model's full width (ARDRONE
      640x480 uint8 frames of a forward camera step -> 320x180, trunk
      (3,5,5,8),(8,12,12,10), 16x16 window), B=128, in fast mode, 'warp'
@@ -44,7 +48,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      cartesian2polar, the net and flow2depth; the version2 net (180x320,
      17x17x32 trunk, 17x17 window), one pair card vs CPU;
  10. timing: CUDA events after warm-up, median of 5; B1 in bf16 (the
-     online program's fast mode) and f32; B4 at the finest level (one
+     online program's fast mode) and f32; B3 in f32 and bf16 beside
+     torch.nn.functional.grid_sample on the same inputs (its library
+     yardstick, which the port never calls); B4 at the finest level (one
      call, and 10 calls back to back), and over one config2 solve: each
      launch's device time from torch.profiler, by level, beside the
      dependency floor (one half-sweep's cluster barrier and boundary-row
@@ -60,7 +66,10 @@ TF32 is switched off for the whole run (cuDNN convolutions and matmuls run
 in full f32), so that the card computes what the CPU reference computes.
 The last three lines are a JSON summary of the kernels (launches on their
 main path, error against the plain version, kernel and plain times, the
-bound from this run's inputs; B1 at bf16; B4 also with its dependency
+bound from this run's inputs; B1 at bf16; B1, B2 and B5 also their
+largest error at the C24 shapes; B3 in f32 with grid_sample's time as
+library_ms, both also 10 calls back to back, and its bf16 times and
+bound; B4 also with its dependency
 floor and its device time over a solve), the card, and {"ok": true,
 "device": {...}}. A longer report goes to
 chiprun_out/chip_smoke_report.json.
@@ -333,6 +342,90 @@ def phase_kernels(dev, report):
                 match_fast=b2_err, match_throughput=max(errs5))
     report["kernel_vs_plain"] = errs
     return errs
+
+
+# shapes beyond the main paths' (ROADMAP C24), each at small B against the
+# twins: B1 in conf and marg mode at more than 16 window rows and more than
+# 32 channels, B2 and B5 at windows whose halo fits on no tile (walked in
+# bands) and at more than 32 channels
+C24_B, C24_H, C24_W = 2, 12, 40
+C24_FUSED = [(17, 4, 10), (24, 24, 10), (32, 32, 10), (64, 64, 10),
+             (16, 16, 33), (16, 16, 64)]
+C24_DECOMPOSED = [(64, 64, 1), (64, 64, 32), (48, 48, 17), (3, 500, 10),
+                  (3, 500, 32), (500, 3, 10), (500, 3, 32), (16, 16, 33),
+                  (16, 16, 64)]
+
+
+def phase_general_shapes(dev, report):
+    """B1, B2 and B5 against their twins at the C24 shapes; every wrapper
+    must take every shape. Returns the largest error of each kernel."""
+    from depth_estimation_tpu_torch.ops import matching
+    from depth_estimation_tpu_torch.ops import matching_experimental as mexp
+    gen = torch.Generator(device=dev).manual_seed(9)
+
+    def feats(maxh, maxw, K):
+        return (0.5 * torch.randn(C24_B, C24_H, C24_W, K, generator=gen,
+                                  device=dev),
+                0.5 * torch.randn(C24_B, C24_H + maxh - 1, C24_W + maxw - 1,
+                                  K, generator=gen, device=dev))
+
+    def held(name, got, ref, extra=None):
+        torch.cuda.synchronize()
+        flips = (got[0] != ref[0]).float().mean().item()
+        errs = [(a - b).abs().max().item() for a, b in zip(got[1:4], ref[1:4])]
+        row = dict(kernel=name, flips=flips, ey=errs[0], ex=errs[1],
+                   pmax=errs[2])
+        if extra == "marg":
+            row["marg"] = (got[4] - ref[4]).abs().max().item()
+        elif extra == "conf":
+            row["conf_flips"] = (got[4] != ref[4]).float().mean().item()
+        rows.append(row)
+        print(f"C24 {name}: idx mismatch {flips:.2e}, max err ey {errs[0]:.2e} "
+              f"ex {errs[1]:.2e} pmax {errs[2]:.2e}"
+              + (f" marg {row['marg']:.2e}" if "marg" in row else "")
+              + (f" conf mismatch {row['conf_flips']:.2e}" if "conf_flips" in row
+                 else ""), flush=True)
+        check(flips <= TOL_FLIP and row.get("conf_flips", 0) <= TOL_FLIP,
+              f"C24 {name}: WTA or gate mismatch {row}")
+        check(max(errs[:2]) <= TOL_FLOW_PX and errs[2] <= TOL_PROB
+              and row.get("marg", 0) <= TOL_PROB, f"C24 {name}: errors {row}")
+        return max(errs + [row.get("marg", 0)])
+
+    rows, worst = [], dict(match_fused=0.0, match_fast=0.0,
+                           match_throughput=0.0)
+    for maxh, maxw, K in C24_FUSED:
+        f1, f2 = feats(maxh, maxw, K)
+        plan = matching.fused_plan(maxh, maxw, K)
+        for dt in (torch.float32, torch.bfloat16):
+            for mode in ("conf", "marg"):
+                marg, conf = mode == "marg", mode == "conf"
+                got = matching.match_flow_fused(f1, f2, maxh, maxw, 8, marg, dt,
+                                                conf)
+                ref = matching.match_flow_fused_plain(f1, f2, maxh, maxw, marg,
+                                                      dt, conf)
+                e = held(f"B1 {str(dt)[6:]} {mode} {maxh}x{maxw} K={K} "
+                         f"({plan.block_rows} rows a pass, bands of "
+                         f"{plan.band_cols})", got, ref, mode)
+                worst["match_fused"] = max(worst["match_fused"], e)
+    for maxh, maxw, K in C24_DECOMPOSED:
+        f1, f2 = feats(maxh, maxw, K)
+        p2 = matching.match_plan(maxh, maxw, K)
+        for dt in (torch.float32, torch.bfloat16):
+            got = matching.match_flow_fast(f1, f2, maxh, maxw, 8, dt)
+            ref = matching.match_flow_fast_plain(f1, f2, maxh, maxw, dt)
+            e = held(f"B2 {str(dt)[6:]} {maxh}x{maxw} K={K} (bands "
+                     f"{p2.bh}x{p2.bw}, tile {p2.tile[0]}x{p2.tile[1]})",
+                     got, ref)
+            worst["match_fast"] = max(worst["match_fast"], e)
+        p5 = matching.match_plan(maxh, maxw, K, dx_major=False)
+        got = mexp.match_flow_throughput(f1, f2, maxh, maxw)
+        ref = mexp.match_flow_throughput_plain(*mexp._norms(f1, f2), maxh,
+                                               maxw)
+        e = held(f"B5 float32 {maxh}x{maxw} K={K} (bands {p5.bh}x{p5.bw}, "
+                 f"tile {p5.tile[0]}x{p5.tile[1]})", got, ref)
+        worst["match_throughput"] = max(worst["match_throughput"], e)
+    report["general_shapes"] = rows
+    return worst
 
 
 def sor_planes(gen, B, H, W, dev):
@@ -1043,22 +1136,58 @@ def phase_timing(dev, card, ests, frames, gt_frames, report):
                                                       dt, True))
         p = cuda_ms(lambda: matching.match_flow_fused_plain(
             f1, f2, 16, 16, False, dt, True), reps=3)
+        # the general kernel on the same shape (16 rows a pass, one band,
+        # K rounded to 16), the path the plan takes beyond the unblocked one
+        gp = matching.FusedPlan(True, 16, 16, 0)
+        g = cuda_ms(lambda: matching._match_flow_fused_cuda(
+            f1, f2, 16, 16, False, dt, True, 0.11, gp))
         rows[f"match_fused_{str(dt)[6:]}"] = (k, p)
+        rows[f"match_fused_{str(dt)[6:]}_general"] = g
         print(f"[{card}] B1 match_fused {str(dt)[6:]} conf, B={B_MAIN} "
-              f"150x290x10 16x16: kernel {k:.3f} ms, plain {p:.1f} ms",
-              flush=True)
+              f"150x290x10 16x16: kernel {k:.3f} ms, plain {p:.1f} ms; the "
+              f"general kernel on this shape {g:.3f} ms", flush=True)
     Ks = ests["warp"].K_scaled
     R = torch.eye(3, device=dev).expand(B_MAIN, 3, 3).clone()
     R[:, 0, 2], R[:, 2, 0] = 0.01, -0.01
     xs, ys = undist.homography_grid(Ks, R, 165, 305)
     imgs = torch.randn(B_MAIN, 165, 305, 10, generator=gen, device=dev)
+    # the library yardstick: grid_sample (bilinear, zero padding, corners
+    # aligned) on the channels-last image seen as NCHW, with a normalised
+    # grid computed beforehand; it matches B3 wherever the displacement lies
+    # in the band. bf16 takes a bf16 grid and gives bf16 output.
+    import torch.nn.functional as F
+    norm = torch.stack((2 * xs / (305 - 1) - 1, 2 * ys / (165 - 1) - 1), -1)
+    inband = (((xs - torch.arange(305, device=dev)).abs() <= 8)
+              & ((ys - torch.arange(165, device=dev)[:, None]).abs() <= 8))
     for dt in (torch.float32, torch.bfloat16):
         im = imgs.to(dt)
         k = cuda_ms(lambda: warp.banded_bilinear_warp(im, xs, ys, 8))
         p = cuda_ms(lambda: warp.banded_bilinear_warp_plain(im, xs, ys, 8))
+        nchw, grid = im.permute(0, 3, 1, 2), norm.to(dt)
+
+        def library():
+            return F.grid_sample(nchw, grid, mode="bilinear",
+                                 padding_mode="zeros", align_corners=True)
+        lib_ms = cuda_ms(library)
+        # 10 calls back to back, so that the card, not the wrapper's host
+        # work, sets the pace (ms a call)
+        k10 = cuda_ms(lambda: [warp.banded_bilinear_warp(im, xs, ys, 8)
+                               for _ in range(10)]) / 10
+        lib10 = cuda_ms(lambda: [library() for _ in range(10)]) / 10
         rows[f"warp_banded_{str(dt)[6:]}"] = (k, p)
+        rows[f"warp_banded_{str(dt)[6:]}_library"] = lib_ms
+        rows[f"warp_banded_{str(dt)[6:]}_back_to_back"] = (k10, lib10)
+        same = ""
+        if dt == torch.float32:      # a bf16 grid rounds the coordinates
+            d = (library().permute(0, 2, 3, 1)
+                 - warp.banded_bilinear_warp(im, xs, ys, 8))[inband]
+            same = (f"; vs B3 on the {inband.float().mean().item():.3f} of "
+                    f"pixels in the band: max diff {d.abs().max().item():.2e}")
         print(f"[{card}] B3 warp_banded {str(dt)[6:]}, B={B_MAIN} 165x305x10 "
-              f"band 8: kernel {k:.3f} ms, plain {p:.3f} ms", flush=True)
+              f"band 8: kernel {k:.3f} ms, plain {p:.3f} ms, grid_sample "
+              f"{lib_ms:.3f} ms (NCHW view of the channels-last image, "
+              f"{str(dt)[6:]} output{same}); 10 back to back: kernel "
+              f"{k10:.3f}, grid_sample {lib10:.3f} ms a call", flush=True)
     # B2 and B5 at the matching core's shape, in the same call as B1
     # above: the wrappers on the plan's blocking (B2 with its f32 -> bf16
     # cast, B5 with its norms, which the kernel now computes), then every
@@ -1150,8 +1279,13 @@ def phase_timing(dev, card, ests, frames, gt_frames, report):
         "match_fast": matcher_bound(f1.to(torch.bfloat16), f2.to(torch.bfloat16),
                                     16, 16, 4, 2 * 10 + 3 + 7),
         "match_throughput": matcher_bound(f1, f2, 16, 16, 4, 2 * 10 + 3 + 7),
+        # the image read once in its storage type, the coordinates, the
+        # f32 output written once
         "warp_banded": bound_ms(
             imgs.numel() * 4 + xs.numel() * 4 + ys.numel() * 4
+            + imgs.numel() * 4, imgs.numel() * 7),
+        "warp_banded_bfloat16": bound_ms(
+            imgs.numel() * 2 + xs.numel() * 4 + ys.numel() * 4
             + imgs.numel() * 4, imgs.numel() * 7),
         "sor_redblack": bound_ms(11 * planes[0].numel() * 4,
                                  planes[0].numel() * 40 * 30),
@@ -1226,6 +1360,7 @@ def main() -> int:
               f"{row['spill_loads']} B", flush=True)
 
     errs = phase_kernels(dev, report)
+    general = phase_general_shapes(dev, report)
 
     geom, _, params, _ = mio.load_model(CAR_MODEL)
     counts, ests, frames = phase_slice(dev, geom, params, report)
@@ -1277,6 +1412,24 @@ def main() -> int:
             next(k for k in kernels if k["name"] == name).update(
                 issue_floor_ms=floors[key]["ms"],
                 sass_per_cell=floors[key]["per_cell"])
+    # the C24 shapes' largest errors beside the main path's
+    for name, key in (("match_flow_fused", "match_fused"),
+                      ("match_flow_fast", "match_fast"),
+                      ("match_flow_throughput", "match_throughput")):
+        next(k for k in kernels if k["name"] == name).update(
+            max_abs_err_general_shapes=general[key])
+    # B3 in bf16 beside the f32 row, and grid_sample's time in each type
+    next(k for k in kernels if k["name"] == "banded_bilinear_warp").update(
+        library_ms=rows["warp_banded_float32_library"],
+        ms_back_to_back=rows["warp_banded_float32_back_to_back"][0],
+        library_ms_back_to_back=rows["warp_banded_float32_back_to_back"][1],
+        ms_bf16=rows["warp_banded_bfloat16"][0],
+        plain_ms_bf16=rows["warp_banded_bfloat16"][1],
+        bound_ms_bf16=bounds["warp_banded_bfloat16"][0],
+        library_ms_bf16=rows["warp_banded_bfloat16_library"],
+        ms_back_to_back_bf16=rows["warp_banded_bfloat16_back_to_back"][0],
+        library_ms_back_to_back_bf16=rows[
+            "warp_banded_bfloat16_back_to_back"][1])
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} not launched on its path")
     report["kernels"] = kernels

@@ -17,18 +17,19 @@
 
 // f1 (B, H, W, K), f2 (B, H + maxh - 1, W + maxw - 1, K), channels last, in
 // f32 or (is_bf16) bf16; idx int32 and ey, ex, pmax f32, each (B, H, W).
-// rx, ry, tx_n, ty_n: the launch plan (ops/matching.py:match_plan).
+// rx, ry, tx_n, ty_n, band_h, band_w: the launch plan
+// (ops/matching.py:match_plan).
 extern "C" int match_fast_launch(const void* f1, const void* f2, void* idx,
                                  void* ey, void* ex, void* pmax, int B, int H,
                                  int W, int K, int maxh, int maxw, int is_bf16,
                                  int rx, int ry, int tx_n, int ty_n,
-                                 void* stream) {
+                                 int band_h, int band_w, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return match_decomposed::dispatch<__nv_bfloat16, true>(
         f1, f2, idx, ey, ex, pmax, B, H, W, K, maxh, maxw, rx, ry, tx_n, ty_n,
-        st);
+        band_h, band_w, st);
   return match_decomposed::dispatch<float, true>(
       f1, f2, idx, ey, ex, pmax, B, H, W, K, maxh, maxw, rx, ry, tx_n, ty_n,
-      st);
+      band_h, band_w, st);
 }

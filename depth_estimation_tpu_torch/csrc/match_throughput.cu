@@ -20,14 +20,15 @@
 #include "match_decomposed.cuh"
 
 // f1 (B, H, W, K), f2 (B, H + maxh - 1, W + maxw - 1, K), channels last, f32;
-// idx int32 and ey, ex, pmax f32, each (B, H, W). rx, ry, tx_n, ty_n: the
-// launch plan (ops/matching.py:match_plan).
+// idx int32 and ey, ex, pmax f32, each (B, H, W). rx, ry, tx_n, ty_n,
+// band_h, band_w: the launch plan (ops/matching.py:match_plan, dy-major).
 extern "C" int match_throughput_launch(const void* f1, const void* f2,
                                        void* idx, void* ey, void* ex,
                                        void* pmax, int B, int H, int W, int K,
                                        int maxh, int maxw, int rx, int ry,
-                                       int tx_n, int ty_n, void* stream) {
+                                       int tx_n, int ty_n, int band_h,
+                                       int band_w, void* stream) {
   return match_decomposed::dispatch<float, false>(
       f1, f2, idx, ey, ex, pmax, B, H, W, K, maxh, maxw, rx, ry, tx_n, ty_n,
-      static_cast<cudaStream_t>(stream));
+      band_h, band_w, static_cast<cudaStream_t>(stream));
 }

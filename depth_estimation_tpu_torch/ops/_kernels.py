@@ -37,10 +37,10 @@ _F = ctypes.c_float
 # for a configuration it does not support.
 SIGNATURES = {
     "match_fused": {
-        # f1, f2, idx, ey, ex, pmax, extra, B, H, W, K, maxh, maxw, is_bf16,
-        # want_marg, want_conf, conf_threshold, stream
-        "match_fused_launch": [_P, _P, _P, _P, _P, _P, _P,
-                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+        # f1, f2, idx, ey, ex, pmax, extra, scratch, B, H, W, K, maxh, maxw,
+        # block_rows, band_cols, is_bf16, want_marg, want_conf,
+        # conf_threshold, stream
+        "match_fused_launch": [_P] * 8 + [_I] * 11 + [_F, _P],
     },
     "warp_banded": {
         # img, xs, ys, out, B, H, W, C, band, is_bf16, stream
@@ -57,13 +57,13 @@ SIGNATURES = {
     },
     "match_fast": {
         # f1, f2, idx, ey, ex, pmax, B, H, W, K, maxh, maxw, is_bf16, rx,
-        # ry, tx_n, ty_n, stream
-        "match_fast_launch": [_P] * 6 + [_I] * 11 + [_P],
+        # ry, tx_n, ty_n, band_h, band_w, stream
+        "match_fast_launch": [_P] * 6 + [_I] * 13 + [_P],
     },
     "match_throughput": {
         # f1, f2, idx, ey, ex, pmax, B, H, W, K, maxh, maxw, rx, ry, tx_n,
-        # ty_n, stream
-        "match_throughput_launch": [_P] * 6 + [_I] * 10 + [_P],
+        # ty_n, band_h, band_w, stream
+        "match_throughput_launch": [_P] * 6 + [_I] * 12 + [_P],
     },
 }
 SOURCES = tuple(f"{stem}.cu" for stem in SIGNATURES)

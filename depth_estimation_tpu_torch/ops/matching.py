@@ -18,7 +18,9 @@ is the centered displacement ``(dy - halfh1, dx - halfw1)``.
     launches ``csrc/match_fast.cu`` (kernel B2, the port of the Pallas
     ``_fast_kernel``); on a CPU tensor it runs ``match_flow_fast_plain``.
     ``match_plan`` is the launch's rule on the window and K: the pixels a
-    thread computes and the output tile a block stages the halo of.
+    thread computes, the output tile a block stages the halo of, and the
+    bands of the window staged one at a time where the whole does not fit;
+    ``fused_plan`` is B1's.
 
 Numerics of B1, shared by its kernel and plain version, and with the
 reference: features are stored in ``dtype`` (f32 or bf16) and upcast to f32
@@ -40,8 +42,8 @@ import torch
 from . import _kernels
 
 NEG_INF = -3.4e38
-MAX_WINDOW_ROWS = 16        # csrc/match_fused.cu keeps 16 per-row accumulators
-MAX_CHANNELS = 32
+SMEM_LIMIT = 227 * 1024             # shared memory a block may use
+SMEM_PER_SM = 228 * 1024            # and an SM holds, 1 KB a block reserved
 
 
 def _ssd_k_order(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -159,11 +161,75 @@ def match_flow_fused_plain(f1, f2, maxh: int, maxw: int, want_marg=False,
     return tuple(outs)
 
 
+# The launch plan of B1 (csrc/match_fused.cu, which holds the same rules).
+# The unblocked kernel takes windows of up to FUSED_PASS_ROWS rows at K up
+# to FUSED_KC[-1] whose halo fits; the general kernel every other shape, in
+# passes of at most FUSED_PASS_ROWS window rows, each in bands of columns.
+# Channel counts are rounded up to the listed bounds (the general kernel
+# reads K above GENERAL_KC[-1] at run time). A block covers an 8 x 32
+# output tile, two pixels a thread.
+FUSED_KC = (4, 8, 10, 12, 16, 32)
+GENERAL_KC = (8, 16, 32, 64)
+FUSED_PASS_ROWS = 16
+FUSED_TILE = (8, 32)
+FUSED_R = 2
+
+
+class FusedPlan(NamedTuple):
+    general: bool           # the general kernel (passes, bands, scratch)
+    block_rows: int         # window rows a pass
+    band_cols: int          # window columns a band
+    smem: int               # bytes of one staged halo
+
+
+def _round_up(K: int, bounds) -> Optional[int]:
+    return next((kc for kc in bounds if K <= kc), None)
+
+
+def fused_halo_bytes(kc: int, rows: int, cols: int) -> int:
+    """Shared memory of B1's channel-major f2 halo for ``rows`` x ``cols``
+    window cells: kc planes of (8 + rows - 1) x (2 * 15 + 2 * pairs) f32,
+    pairs = the column pairs a thread walks in a row of ``cols`` cells."""
+    pairs = (cols + 2 * FUSED_R - 2) // FUSED_R
+    halo_w = FUSED_R * (FUSED_TILE[1] // FUSED_R - 1) + FUSED_R * pairs
+    return kc * (FUSED_TILE[0] + rows - 1) * halo_w * 4
+
+
+@lru_cache(maxsize=None)
+def fused_plan(maxh: int, maxw: int, K: int) -> Optional[FusedPlan]:
+    """B1's plan for a maxh x maxw window on K channels: the unblocked
+    kernel where it takes the shape; else the general kernel on the most
+    window rows a pass (at most 16), and on them the widest band of columns,
+    whose halo fits in 227 KB. None above FUSED_MAX_CHANNELS channels, where
+    not even one cell's halo fits. Memoised."""
+    kc = _round_up(K, FUSED_KC)
+    if maxh <= FUSED_PASS_ROWS and kc is not None:
+        smem = fused_halo_bytes(kc, maxh, maxw)
+        if smem <= SMEM_LIMIT:
+            return FusedPlan(False, maxh, maxw, smem)
+    kc = _round_up(K, GENERAL_KC) or K
+    for rows in range(min(FUSED_PASS_ROWS, maxh), 0, -1):
+        cols = next((c for c in range(maxw, 0, -1)
+                     if fused_halo_bytes(kc, rows, c) <= SMEM_LIMIT), 0)
+        if cols:
+            return FusedPlan(True, rows, cols, fused_halo_bytes(kc, rows, cols))
+    return None
+
+
+# the most channels B1 takes: one cell's halo, K planes, fills 227 KB
+FUSED_MAX_CHANNELS = SMEM_LIMIT // fused_halo_bytes(1, 1, 1)
+
+
+def _unsupported(name: str, K: int, limit: int) -> RuntimeError:
+    return RuntimeError(
+        f"{name}: unsupported configuration: K={K} channels; the f2 halo of "
+        f"one window cell fits in {SMEM_LIMIT} bytes of shared memory up to "
+        f"K={limit}")
+
+
 def _match_flow_fused_cuda(f1, f2, maxh, maxw, want_marg, dtype, want_conf,
-                           conf_threshold):
-    if maxh > MAX_WINDOW_ROWS:
-        raise ValueError(f"match_fused kernel supports maxh <= "
-                         f"{MAX_WINDOW_ROWS}, got {maxh}")
+                           conf_threshold, plan=None):
+    """Kernel B1 on CUDA tensors, on ``plan`` (default: ``fused_plan``)."""
     f1 = f1.to(dtype).contiguous()
     f2 = f2.to(dtype).contiguous()
     dts = (torch.float32, torch.bfloat16)
@@ -172,22 +238,27 @@ def _match_flow_fused_cuda(f1, f2, maxh, maxw, want_marg, dtype, want_conf,
     if f2.device != f1.device:
         raise ValueError("f1 and f2 must be on the same device")
     B, H, W, K = f1.shape
-    if K > MAX_CHANNELS:
-        raise ValueError(f"match_fused kernel supports K <= {MAX_CHANNELS}")
+    plan = plan or fused_plan(maxh, maxw, K)
+    if plan is None:
+        raise _unsupported("match_fused", K, FUSED_MAX_CHANNELS)
     idx = torch.empty((B, H, W), dtype=torch.int32, device=f1.device)
     ey, ex, pmax = (torch.empty((B, H, W), device=f1.device) for _ in range(3))
-    extra = None
+    extra = scratch = None
     if want_marg:
         extra = torch.empty((B, maxh, H, W), device=f1.device)
     elif want_conf:
         extra = torch.empty((B, H, W), device=f1.device)
+    if plan.general:        # each row's (max, sum, x-sum)
+        scratch = torch.empty((3, B, maxh, H, W), device=f1.device)
     lib = _kernels.library()
     with torch.cuda.device(f1.device):
         lib.call("match_fused_launch", f1.data_ptr(), f2.data_ptr(),
                  idx.data_ptr(), ey.data_ptr(), ex.data_ptr(), pmax.data_ptr(),
                  extra.data_ptr() if extra is not None else None,
-                 B, H, W, K, maxh, maxw, int(dtype == torch.bfloat16),
-                 int(want_marg), int(want_conf), float(conf_threshold))
+                 scratch.data_ptr() if scratch is not None else None,
+                 B, H, W, K, maxh, maxw, plan.block_rows, plan.band_cols,
+                 int(dtype == torch.bfloat16), int(want_marg), int(want_conf),
+                 float(conf_threshold))
     match_flow_fused.launches += 1
     outs = [idx, ey, ex, pmax]
     if extra is not None:
@@ -210,8 +281,11 @@ def match_flow_fused(
     conf_threshold). The two are mutually exclusive. ``dtype`` is the
     feature storage type (f32 or bf16); accumulation is f32.
     ``block_rows`` is accepted for signature parity with the reference and
-    has no effect. CUDA tensors go through the kernel (counted in
-    ``match_flow_fused.launches``), CPU tensors through the plain version."""
+    has no effect. CUDA tensors go through kernel B1 (counted in
+    ``match_flow_fused.launches``) on ``fused_plan``: every window, and K up
+    to FUSED_MAX_CHANNELS (227, where one window cell's f2 halo fills
+    shared memory; the package's configurations use K <= 32), beyond which
+    it raises RuntimeError. CPU tensors go through the plain version."""
     if want_marg and want_conf:
         raise ValueError("want_marg and want_conf are mutually exclusive")
     squeeze = f1.ndim == 3
@@ -243,20 +317,24 @@ match_flow_fused.launches = 0
 # ---------------------------------------------------------------------------
 
 # The launch plan of B2 and B5 (csrc/match_decomposed.cuh, which holds the
-# same rules). Channel counts are rounded up to a compiled bound; each bound
-# has the (rx, ry) pixel blockings listed here compiled, the first being the
-# one the plan takes (the others are there to be timed against it).
-KC_BUCKETS = (4, 8, 10, 16, 32)
+# same rules). Channel counts are rounded up to a compiled bound, and K above
+# the largest is taken at run time (bound RUNTIME_K); each bound has the
+# (rx, ry) pixel blockings listed here compiled, the first being the one the
+# plan takes (the others are there to be timed against it).
+KC_BUCKETS = (4, 8, 10, 16, 32, 64)
+RUNTIME_K = 0
 BLOCKINGS = {4: ((2, 2),), 8: ((2, 2),),
              10: ((2, 2), (4, 2), (4, 1), (2, 1)),
-             16: ((2, 2),), 32: ((4, 1),)}
+             16: ((2, 2),), 32: ((4, 1),), 64: ((1, 1),), RUNTIME_K: ((1, 1),)}
 # output tiles (rows, columns) tried in order: the first whose halo fits
 # and leaves MIN_WARPS warps resident on an SM, else the fitting one with
 # the most resident warps
 TILES = ((32, 32), (16, 32), (16, 16), (8, 16), (8, 8))
-SMEM_LIMIT = 227 * 1024             # shared memory a block may use
-SMEM_PER_SM = 228 * 1024            # and an SM holds, 1 KB a block reserved
 MIN_WARPS = 8
+# a window whose halo fits on no tile is walked in bands, each band's halo
+# within BAND_SMEM so that two blocks share an SM and one stages while the
+# other computes (SMEM_LIMIT where even that does not fit)
+BAND_SMEM = SMEM_PER_SM // 2 - 1024
 
 
 class MatchPlan(NamedTuple):
@@ -264,7 +342,9 @@ class MatchPlan(NamedTuple):
     ry: int                 # and down
     tx: int                 # threads across a tile
     ty: int                 # and down
-    smem: int               # bytes of the staged halo
+    smem: int               # bytes of one band's staged halo
+    bh: int                 # window rows a band
+    bw: int                 # and columns
 
     @property
     def tile(self) -> Tuple[int, int]:
@@ -272,19 +352,32 @@ class MatchPlan(NamedTuple):
 
 
 def channel_bound(K: int) -> int:
-    """K rounded up to a compiled channel bound."""
-    for kc in KC_BUCKETS:
-        if K <= kc:
-            return kc
-    raise ValueError(f"the decomposed matchers support K <= {KC_BUCKETS[-1]}")
+    """K rounded up to a compiled channel bound; RUNTIME_K above the
+    largest."""
+    return _round_up(K, KC_BUCKETS) or RUNTIME_K
 
 
-def halo_bytes(kc: int, ry: int, tile_h: int, tile_w: int, maxh: int,
-               maxw: int) -> int:
-    """Shared memory of a tile's f2 halo: positions of kc channels and
-    |f2|^2, padded to an odd number of float4s, rows of ``cols`` positions
-    at an odd thread-row stride (row R starts at R * pitch + R // ry)."""
-    rows, cols = tile_h + maxh - 1, tile_w + maxw - 1
+def slot_channels(K: int) -> int:
+    """The channels a staged halo position holds besides |f2|^2."""
+    return channel_bound(K) or K
+
+
+def max_threads(kc: int, blocking: Tuple[int, int]) -> int:
+    """Threads a block of this bound and blocking may hold: 256 where a
+    thread keeps 64 channels or reads them at run time, so that it may use
+    255 registers; else 1024 / (rx ry)."""
+    if kc in (64, RUNTIME_K):
+        return 256
+    return 1024 // (blocking[0] * blocking[1])
+
+
+def halo_bytes(kc: int, ry: int, tile_h: int, tile_w: int, bh: int,
+               bw: int) -> int:
+    """Shared memory of a tile's f2 halo for a band of bh x bw window cells:
+    positions of kc channels and |f2|^2, padded to an odd number of float4s,
+    rows of ``cols`` positions at an odd thread-row stride (row R starts at
+    R * pitch + R // ry)."""
+    rows, cols = tile_h + bh - 1, tile_w + bw - 1
     pitch = cols + ((ry * cols) & 1)
     slot = (((kc + 4) // 4) | 1) * 4
     return ((rows - 1) * pitch + (rows - 1) // ry + cols) * slot * 4
@@ -297,18 +390,25 @@ def resident_warps(plan: MatchPlan) -> int:
     return blocks * threads // 32
 
 
+def _tiles(K: int, blocking: Tuple[int, int]):
+    """The TILES a block of this blocking may cover at K channels."""
+    rx, ry = blocking
+    cap = max_threads(channel_bound(K), blocking)
+    return [(th, tw) for th, tw in TILES if (tw // rx) * (th // ry) <= cap]
+
+
 def plan_for(maxh: int, maxw: int, K: int,
              blocking: Tuple[int, int]) -> Optional[MatchPlan]:
-    """The tile for one blocking (see TILES), or None where no tile's halo
-    fits in shared memory."""
-    kc = channel_bound(K)
+    """The tile for one blocking with the whole window in one band (see
+    TILES), or None where no tile's halo fits in shared memory."""
+    kc = slot_channels(K)
     rx, ry = blocking
     best = None
-    for th, tw in TILES:
+    for th, tw in _tiles(K, blocking):
         smem = halo_bytes(kc, ry, th, tw, maxh, maxw)
         if smem > SMEM_LIMIT:
             continue
-        plan = MatchPlan(rx, ry, tw // rx, th // ry, smem)
+        plan = MatchPlan(rx, ry, tw // rx, th // ry, smem, maxh, maxw)
         if resident_warps(plan) >= MIN_WARPS:
             return plan
         if best is None or resident_warps(plan) > resident_warps(best):
@@ -316,19 +416,63 @@ def plan_for(maxh: int, maxw: int, K: int,
     return best
 
 
+def band_for(maxh: int, maxw: int, K: int, blocking: Tuple[int, int],
+             tile: Tuple[int, int], dx_major: bool,
+             limit: int) -> Optional[Tuple[int, int]]:
+    """The largest band (rows, columns of the window) whose halo on
+    ``tile`` fits in ``limit`` bytes and keeps the twin's visit order:
+    whole inner lines (columns for dx_major, B2; rows for B5) as many as
+    fit, else pieces of one outer line as long as fit; None where not even
+    one cell fits."""
+    th, tw = tile
+    kc, ry = slot_channels(K), blocking[1]
+    outer, inner = (maxw, maxh) if dx_major else (maxh, maxw)
+
+    def band(o, i):
+        return (i, o) if dx_major else (o, i)
+
+    for o, i in [(o, inner) for o in range(outer, 0, -1)] + \
+                [(1, i) for i in range(inner - 1, 0, -1)]:
+        if halo_bytes(kc, ry, th, tw, *band(o, i)) <= limit:
+            return band(o, i)
+    return None
+
+
 @lru_cache(maxsize=None)
-def match_plan(maxh: int, maxw: int, K: int) -> Optional[MatchPlan]:
-    """The launch plan of B2 and B5 for a maxh x maxw window on K channels:
-    the channel bound's first blocking on its tile, or None where the halo
-    does not fit (the wrappers then raise). Memoised: a program asks for
-    one window again and again."""
-    return plan_for(maxh, maxw, K, BLOCKINGS[channel_bound(K)][0])
+def match_plan(maxh: int, maxw: int, K: int,
+               dx_major: bool = True) -> Optional[MatchPlan]:
+    """The launch plan of B2 (``dx_major``) or B5 for a maxh x maxw window
+    on K channels: the channel bound's first blocking, on the whole window
+    (``plan_for``) where a tile's halo holds it, else on the first tile
+    with a band (``band_for``) within BAND_SMEM, or within SMEM_LIMIT. None
+    above DECOMPOSED_MAX_CHANNELS channels, where not even one cell's halo
+    fits (the wrappers then raise). Memoised: a program asks for one window
+    again and again."""
+    blocking = BLOCKINGS[channel_bound(K)][0]
+    plan = plan_for(maxh, maxw, K, blocking)
+    if plan is not None:
+        return plan
+    rx, ry = blocking
+    for limit in (BAND_SMEM, SMEM_LIMIT):
+        for th, tw in _tiles(K, blocking):
+            band = band_for(maxh, maxw, K, blocking, (th, tw), dx_major, limit)
+            if band is not None:
+                smem = halo_bytes(slot_channels(K), ry, th, tw, *band)
+                return MatchPlan(rx, ry, tw // rx, th // ry, smem, *band)
+    return None
 
 
-def _unsupported(name: str, maxh: int, maxw: int, K: int) -> RuntimeError:
-    return RuntimeError(
-        f"{name}: unsupported configuration: the f2 halo of a {maxh}x{maxw} "
-        f"window at K={K} does not fit in {SMEM_LIMIT} bytes of shared memory")
+def _decomposed_channel_limit() -> int:
+    """The most channels with a plan: one cell's halo on the smallest
+    tile, at run time, within SMEM_LIMIT."""
+    th, tw = TILES[-1]
+    K = KC_BUCKETS[-1]
+    while halo_bytes(K + 1, 1, th, tw, 1, 1) <= SMEM_LIMIT:
+        K += 1
+    return K
+
+
+DECOMPOSED_MAX_CHANNELS = _decomposed_channel_limit()
 
 
 def _dot_k_order(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -393,11 +537,9 @@ def _match_flow_fast_cuda(f1, f2, maxh, maxw, dtype, plan=None):
     if f2.device != f1.device:
         raise ValueError("f1 and f2 must be on the same device")
     B, H, W, K = f1.shape
-    if K > MAX_CHANNELS:
-        raise ValueError(f"match_fast kernel supports K <= {MAX_CHANNELS}")
     plan = plan or match_plan(maxh, maxw, K)
     if plan is None:
-        raise _unsupported("match_fast", maxh, maxw, K)
+        raise _unsupported("match_fast", K, DECOMPOSED_MAX_CHANNELS)
     idx = torch.empty((B, H, W), dtype=torch.int32, device=f1.device)
     ey, ex, pmax = (torch.empty((B, H, W), device=f1.device) for _ in range(3))
     lib = _kernels.library()
@@ -405,7 +547,7 @@ def _match_flow_fast_cuda(f1, f2, maxh, maxw, dtype, plan=None):
         lib.call("match_fast_launch", f1.data_ptr(), f2.data_ptr(),
                  idx.data_ptr(), ey.data_ptr(), ex.data_ptr(), pmax.data_ptr(),
                  B, H, W, K, maxh, maxw, int(dtype == torch.bfloat16),
-                 plan.rx, plan.ry, plan.tx, plan.ty)
+                 plan.rx, plan.ry, plan.tx, plan.ty, plan.bh, plan.bw)
     match_flow_fast.launches += 1
     return idx, ey, ex, pmax
 
@@ -422,9 +564,12 @@ def match_flow_fast(
     decomposition rounds apart and the dx-major visit order breaks ties
     differently. ``block_rows`` is accepted for signature parity with the
     reference and has no effect. CUDA tensors go through kernel B2 (counted
-    in ``match_flow_fast.launches``; it takes K <= 32, and raises
-    RuntimeError where ``match_plan`` finds no tile whose f2 halo fits in
-    shared memory), CPU tensors through ``match_flow_fast_plain``."""
+    in ``match_flow_fast.launches``) on ``match_plan``: every window, walked
+    in bands where its halo does not fit, and K up to
+    DECOMPOSED_MAX_CHANNELS (811, where one window cell's halo on the
+    smallest tile fills shared memory; the package's configurations use K
+    <= 32), beyond which it raises RuntimeError. CPU tensors go through
+    ``match_flow_fast_plain``."""
     squeeze = f1.ndim == 3
     if squeeze:
         f1, f2 = f1[None], f2[None]

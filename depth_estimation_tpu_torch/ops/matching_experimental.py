@@ -7,9 +7,9 @@ matchers; no pipeline code imports them.
     the window visited dy-major. On a CUDA tensor it launches the
     hand-written kernel ``csrc/match_throughput.cu`` (kernel B5, the port
     of the Pallas ``_lanes_kernel``), which computes the squared norms
-    itself, on ``matching.match_plan``; on a CPU tensor it computes the
-    norms here and runs ``match_flow_throughput_plain``, the same
-    arithmetic in plain torch.
+    itself, on ``matching.match_plan`` (dy-major bands); on a CPU tensor it
+    computes the norms here and runs ``match_flow_throughput_plain``, the
+    same arithmetic in plain torch.
   * ``match_flow_mxu`` — the cost as |f1|^2 + |f2|^2 - 2<f1, f2>, the cross
     terms of each window row as one batched matrix product of a row block
     against the shifted rows, the window's band read off the product, then
@@ -24,8 +24,8 @@ from typing import Tuple
 import torch
 
 from . import _kernels
-from .matching import (MAX_CHANNELS, NEG_INF, _dot_k_order, _middle,
-                       _unsupported, match_plan)
+from .matching import (DECOMPOSED_MAX_CHANNELS, NEG_INF, _dot_k_order,
+                       _middle, _unsupported, match_plan)
 
 
 # ---------------------------------------------------------------------------
@@ -80,24 +80,23 @@ def match_flow_throughput_plain(f1, f2, n1, n2, maxh: int, maxw: int):
 
 def _match_flow_throughput_cuda(f1, f2, maxh, maxw, plan=None):
     """Kernel B5 on f32 CUDA tensors, on ``plan`` (default:
-    ``matching.match_plan``); the kernel computes the norms."""
+    ``matching.match_plan``, dy-major); the kernel computes the norms."""
     for name, t in (("f1", f1), ("f2", f2)):
         _kernels.check_cuda_tensor(name, t, (torch.float32,), 4)
     if f2.device != f1.device:
         raise ValueError("f1 and f2 must be on the same device")
     B, H, W, K = f1.shape
-    if K > MAX_CHANNELS:
-        raise ValueError(f"match_throughput kernel supports K <= {MAX_CHANNELS}")
-    plan = plan or match_plan(maxh, maxw, K)
+    plan = plan or match_plan(maxh, maxw, K, dx_major=False)
     if plan is None:
-        raise _unsupported("match_throughput", maxh, maxw, K)
+        raise _unsupported("match_throughput", K, DECOMPOSED_MAX_CHANNELS)
     idx = torch.empty((B, H, W), dtype=torch.int32, device=f1.device)
     ey, ex, pmax = (torch.empty((B, H, W), device=f1.device) for _ in range(3))
     lib = _kernels.library()
     with torch.cuda.device(f1.device):
         lib.call("match_throughput_launch", f1.data_ptr(), f2.data_ptr(),
                  idx.data_ptr(), ey.data_ptr(), ex.data_ptr(), pmax.data_ptr(),
-                 B, H, W, K, maxh, maxw, plan.rx, plan.ry, plan.tx, plan.ty)
+                 B, H, W, K, maxh, maxw, plan.rx, plan.ry, plan.tx, plan.ty,
+                 plan.bh, plan.bw)
     match_flow_throughput.launches += 1
     return idx, ey, ex, pmax
 
@@ -115,9 +114,10 @@ def match_flow_throughput(
     signature parity with the reference and have no effect, except that a
     ``block_cols`` that is not a multiple of 8 raises, as the reference
     does. CUDA tensors go through kernel B5 (counted in
-    ``match_flow_throughput.launches``; it takes K <= 32, and raises
-    RuntimeError where ``matching.match_plan`` finds no tile whose f2 halo
-    fits in shared memory), CPU tensors through
+    ``match_flow_throughput.launches``) on ``matching.match_plan``: every
+    window, walked in bands of rows where its halo does not fit, and K up to
+    DECOMPOSED_MAX_CHANNELS (811; the package's configurations use K <= 32),
+    beyond which it raises RuntimeError. CPU tensors go through
     ``match_flow_throughput_plain``."""
     if block_cols % 8:
         raise ValueError(f"block_cols must be a multiple of 8, got {block_cols}")

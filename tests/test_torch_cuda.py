@@ -3,11 +3,14 @@
 Shapes here are chosen to reach the kernels' edges rather than the main
 paths' shapes (``chip_smoke.py`` covers those): ragged output tiles,
 channel counts between the compiled sizes, non-square and 16-row windows,
-bands of 0 and 1, taps on the image border, 1x1 and odd SOR images, 0, 1
-and 40 SOR iterations, leading batch dims, B2 and B5 at K = 1 to 32, 1x1
-to 20x7 windows, batches of 1 and 130, widths that cut a thread's pixel
-block or a tile, every compiled pixel blocking, and halos too large for
-shared memory.
+bands of 0 and 1, taps on the image border, B3's rows cut inside a CTA's
+segment at C = 1 to 17, 1x1 and odd SOR images, 0, 1 and 40 SOR
+iterations, leading batch dims, B2 and B5 at K = 1 to 100, 1x1 to 64x64,
+3x500 and 500x3 windows (walked in bands where the halo does not fit),
+batches of 1 and 130, widths that cut a thread's pixel block or a tile,
+every compiled pixel blocking, and launch plans the kernels refuse; B1's
+general kernel at 17 to 32 window rows, 33 to 70 channels and column
+bands, with an exact tie across two bands.
 B4's cluster partitions are held at every level shape of a config2 solve,
 at strips cut unevenly, at images shorter than a cluster, at images whose
 planes (240x320) or flows (480x640, 1000x1000) exceed the cluster's
@@ -80,16 +83,70 @@ def test_match_fused_kernel_matches_plain(dev, maxh, maxw, K, dt, mode):
         assert bool(near[got[4] != ref[4]].all())
 
 
-def test_match_fused_kernel_rejects_what_it_does_not_take(dev):
-    f1, f2 = _features(dev, 8, 8, 10, 17, 4, seed=0)
-    with pytest.raises(ValueError):
-        matching.match_flow_fused(f1, f2, 17, 4)           # > 16 window rows
-    f1, f2 = _features(dev, 8, 8, 33, 4, 4, seed=0)
-    with pytest.raises(ValueError):
-        matching.match_flow_fused(f1, f2, 4, 4)            # > 32 channels
-    f1, f2 = _features(dev, 8, 8, 10, 4, 4, seed=0)
-    with pytest.raises(ValueError):
-        matching.match_flow_fused(f1, f2.cpu(), 4, 4)      # mixed devices
+# shapes beyond the unblocked kernel: more than 16 window rows, more than 32
+# channels (64 and above at run time), halos beyond shared memory
+GENERAL_FUSED = [(17, 4, 10), (24, 24, 10), (32, 32, 3), (4, 4, 33),
+                 (16, 16, 64), (20, 6, 70), (3, 70, 40)]
+
+
+@pytest.mark.parametrize("mode", ["plain", "marg", "conf"])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("maxh,maxw,K", GENERAL_FUSED)
+def test_match_fused_kernel_general_shapes_match_plain(dev, maxh, maxw, K, dt,
+                                                       mode):
+    assert matching.fused_plan(maxh, maxw, K).general
+    H, W = 9, 37                       # two tiles across, one cut
+    f1, f2 = _features(dev, H, W, K, maxh, maxw, seed=maxh * 100 + K)
+    marg, conf = mode == "marg", mode == "conf"
+    n0 = matching.match_flow_fused.launches
+    got = matching.match_flow_fused(f1, f2, maxh, maxw, 8, marg, dt, conf)
+    assert matching.match_flow_fused.launches == n0 + 1
+    ref = matching.match_flow_fused_plain(f1, f2, maxh, maxw, marg, dt, conf)
+    torch.cuda.synchronize()
+    costs = matching.match_ssd(f1, f2, maxh, maxw, dt)
+    top2 = torch.topk(-costs, 2, dim=-1).values
+    flip = got[0] != ref[0]
+    assert bool(((top2[..., 0] - top2[..., 1])[flip] < 1e-5).all())
+    for a, b in zip(got[1:], ref[1:]):
+        assert a.shape == b.shape
+        assert (a - b).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("rows,cols", [(16, 16), (3, 2), (1, 1)])
+@pytest.mark.parametrize("maxh,maxw,K", [(4, 4, 3), (9, 13, 10), (16, 16, 17)])
+def test_match_fused_general_kernel_any_passes_and_bands_match_plain(
+        dev, maxh, maxw, K, rows, cols):
+    # the general kernel forced onto shapes the unblocked one takes, with
+    # whole-window, small and one-cell passes and bands
+    plan = matching.FusedPlan(True, min(rows, maxh), min(cols, maxw), 0)
+    f1, f2 = _features(dev, 9, 37, K, maxh, maxw, seed=rows * 10 + cols + K)
+    for dt in (torch.float32, torch.bfloat16):
+        got = matching._match_flow_fused_cuda(f1, f2, maxh, maxw, True, dt,
+                                              False, 0.11, plan)
+        ref = matching.match_flow_fused_plain(f1, f2, maxh, maxw, True, dt)
+        torch.cuda.synchronize()
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+
+
+def test_match_fused_kernel_ties_across_bands_take_the_first_cell(dev):
+    # cells (1, 0) (d = 16, the first band) and (0, 8) (d = 8, the second)
+    # tie: the twin's first occurrence in flat order is d = 8
+    f1 = torch.zeros(1, 1, 1, 33, device=dev)
+    f2 = torch.full((1, 16, 16, 33), 5.0, device=dev)
+    f2[0, 1, 0] = 0.0
+    f2[0, 0, 8] = 0.0
+    assert matching.fused_plan(16, 16, 33).band_cols <= 8
+    got = matching.match_flow_fused(f1, f2, 16, 16)
+    ref = matching.match_flow_fused_plain(f1, f2, 16, 16)
+    assert got[0].item() == ref[0].item() == 8
+
+
+def test_match_fused_kernel_rejects_mixed_devices(dev):
+    for maxh, K in ((4, 10), (17, 33)):
+        f1, f2 = _features(dev, 8, 8, K, maxh, 4, seed=0)
+        with pytest.raises(ValueError):
+            matching.match_flow_fused(f1, f2.cpu(), maxh, 4)
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
@@ -119,6 +176,40 @@ def test_warp_banded_kernel_matches_plain(dev, band, C, dt):
     assert got.dtype == torch.float32 and got.shape == ref.shape
     assert torch.isfinite(got).all()
     assert (got - ref).abs().max().item() <= 1e-6
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [1, 3, 10, 17, 500])
+@pytest.mark.parametrize("W", [1, 127, 129, 305])
+def test_warp_banded_kernel_ragged_rows_match_plain(dev, W, C, dt):
+    # rows cut inside a CTA's 128-pixel segment, one pixel, and car_model's
+    # 305; C = 500 shrinks the segment to 64 pixels (their outputs staged in
+    # shared memory)
+    band = 8
+    rng = np.random.RandomState(W * 100 + C)
+    B, H = 3, 6
+    special = np.array([0.0, 0.5, -0.5, band, -band, band + 0.5, -band - 0.5,
+                        band + 1, -band - 1, band + 1.5, -band - 1.5],
+                       np.float32)
+
+    def field():
+        f = rng.uniform(-band - 2.5, band + 2.5, (B, H, W)).astype(np.float32)
+        pick = rng.rand(B, H, W) < 0.5
+        f[pick] = rng.choice(special, size=pick.sum())
+        return f
+    ys = np.arange(H, dtype=np.float32)[None, :, None] + field()
+    xs = np.arange(W, dtype=np.float32)[None, None, :] + field()
+    xs[0, 0, 0] = 1e9                                       # far off the band
+    ys[1, 1, -1] = -1e9
+    imgs = torch.from_numpy(rng.rand(B, H, W, C).astype(np.float32)).to(dev, dt)
+    xs, ys = torch.from_numpy(xs).to(dev), torch.from_numpy(ys).to(dev)
+    n0 = warp.banded_bilinear_warp.launches
+    got = warp.banded_bilinear_warp(imgs, xs, ys, band)
+    assert warp.banded_bilinear_warp.launches == n0 + 1
+    ref = warp.banded_bilinear_warp_plain(imgs, xs, ys, band)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape and torch.isfinite(got).all()
+    assert torch.equal(got, ref)
 
 
 def _sor_planes(dev, lead, H, W, seed):
@@ -316,32 +407,55 @@ def test_match_fast_kernel_batches_equal_plain(dev, B, dt):
     _check_decomposed(got, ref, f1, f2, 16, 16, dt)
 
 
+# every compiled (channel bound, blocking), at a K of that bound (100 for
+# the run-time bound) and a window whose halo one tile holds
+COMPILED = [(kc or 100, b, (16, 16) if kc else (7, 5))
+            for kc, bs in matching.BLOCKINGS.items() for b in bs]
+
+
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("blocking", [b for bs in matching.BLOCKINGS.values()
-                                      for b in bs])
-def test_match_fast_every_compiled_blocking_equals_plain(dev, blocking, dt):
-    # the blockings chip_smoke.py times against the plan's, at K=10 and at
-    # ragged widths
-    f1, f2 = _features(dev, 11, 65, 10, 16, 16, seed=sum(blocking))
-    plan = matching.plan_for(16, 16, 10, blocking)
-    got = matching._match_flow_fast_cuda(f1, f2, 16, 16, dt, plan)
-    ref = matching.match_flow_fast_plain(f1, f2, 16, 16, dt)
+@pytest.mark.parametrize("K,blocking,window", COMPILED)
+def test_match_fast_every_compiled_blocking_equals_plain(dev, K, blocking,
+                                                         window, dt):
+    # the blockings chip_smoke.py times against the plan's (K=10), and the
+    # others, at ragged widths
+    maxh, maxw = window
+    f1, f2 = _features(dev, 11, 65, K, maxh, maxw, seed=sum(blocking) + K)
+    plan = matching.plan_for(maxh, maxw, K, blocking)
+    got = matching._match_flow_fast_cuda(f1, f2, maxh, maxw, dt, plan)
+    ref = matching.match_flow_fast_plain(f1, f2, maxh, maxw, dt)
     torch.cuda.synchronize()
-    _check_decomposed(got, ref, f1, f2, 16, 16, dt)
+    _check_decomposed(got, ref, f1, f2, maxh, maxw, dt)
+
+
+# windows whose halo fits on no tile (walked in bands) and channel counts
+# above 32 (64 compiled, 100 at run time)
+GENERAL_DECOMPOSED = [(64, 64, 32), (64, 64, 1), (48, 48, 17), (3, 500, 10),
+                      (500, 3, 32), (4, 4, 33), (16, 16, 64), (7, 5, 100)]
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("maxh,maxw,K", GENERAL_DECOMPOSED)
+def test_match_fast_kernel_general_shapes_match_plain(dev, maxh, maxw, K, dt):
+    f1, f2 = _features(dev, 7, 37, K, maxh, maxw, seed=maxh + maxw + K)
+    n0 = matching.match_flow_fast.launches
+    got = matching.match_flow_fast(f1, f2, maxh, maxw, 8, dt)
+    assert matching.match_flow_fast.launches == n0 + 1
+    ref = matching.match_flow_fast_plain(f1, f2, maxh, maxw, dt)
+    torch.cuda.synchronize()
+    _check_decomposed(got, ref, f1, f2, maxh, maxw, dt)
 
 
 def test_match_fast_kernel_rejects_what_it_does_not_take(dev):
-    f1, f2 = _features(dev, 8, 8, 33, 4, 4, seed=0)
-    with pytest.raises(ValueError):
-        matching.match_flow_fast(f1, f2, 4, 4)            # > 32 channels
-    f1, f2 = _features(dev, 8, 8, 32, 64, 64, seed=0)
-    n0 = matching.match_flow_fast.launches
-    with pytest.raises(RuntimeError, match="unsupported configuration"):
-        matching.match_flow_fast(f1, f2, 64, 64)          # halo > shared memory
-    assert matching.match_flow_fast.launches == n0
-    # a plan the launcher was not built for is refused on the C side
     f1, f2 = _features(dev, 8, 8, 10, 4, 4, seed=0)
-    bad = matching.MatchPlan(3, 1, 8, 8, 0)
+    with pytest.raises(ValueError):
+        matching.match_flow_fast(f1, f2.cpu(), 4, 4)      # mixed devices
+    # a plan the launcher was not built for is refused on the C side
+    bad = matching.MatchPlan(3, 1, 8, 8, 0, 4, 4)
+    with pytest.raises(RuntimeError, match="unsupported configuration"):
+        matching._match_flow_fast_cuda(f1, f2, 4, 4, torch.float32, bad)
+    # and so is a band that breaks the dx-major visit order
+    bad = matching.MatchPlan(2, 2, 16, 16, 0, 2, 2)
     with pytest.raises(RuntimeError, match="unsupported configuration"):
         matching._match_flow_fast_cuda(f1, f2, 4, 4, torch.float32, bad)
 
@@ -382,28 +496,33 @@ def test_match_throughput_kernel_ragged_equal_plain(dev, H, W, maxh, maxw):
     _throughput_case(dev, 3, H, W, 10, maxh, maxw, seed=H * 100 + W + maxh)
 
 
-@pytest.mark.parametrize("blocking", [b for bs in matching.BLOCKINGS.values()
-                                      for b in bs])
-def test_match_throughput_every_compiled_blocking_equals_plain(dev, blocking):
+@pytest.mark.parametrize("K,blocking,window", COMPILED)
+def test_match_throughput_every_compiled_blocking_equals_plain(dev, K,
+                                                               blocking,
+                                                               window):
     from depth_estimation_tpu_torch.ops import matching_experimental as mexp
-    f1, f2 = _features(dev, 11, 65, 10, 16, 16, seed=sum(blocking) + 1)
-    plan = matching.plan_for(16, 16, 10, blocking)
-    got = mexp._match_flow_throughput_cuda(f1, f2, 16, 16, plan)
-    ref = mexp.match_flow_throughput_plain(*mexp._norms(f1, f2), 16, 16)
+    maxh, maxw = window
+    f1, f2 = _features(dev, 11, 65, K, maxh, maxw, seed=sum(blocking) + K + 1)
+    plan = matching.plan_for(maxh, maxw, K, blocking)
+    got = mexp._match_flow_throughput_cuda(f1, f2, maxh, maxw, plan)
+    ref = mexp.match_flow_throughput_plain(*mexp._norms(f1, f2), maxh, maxw)
     torch.cuda.synchronize()
-    _check_decomposed(got, ref, f1, f2, 16, 16)
+    _check_decomposed(got, ref, f1, f2, maxh, maxw)
+
+
+@pytest.mark.parametrize("maxh,maxw,K", GENERAL_DECOMPOSED)
+def test_match_throughput_kernel_general_shapes_match_plain(dev, maxh, maxw, K):
+    _throughput_case(dev, 2, 7, 37, K, maxh, maxw, seed=maxh + maxw + K + 1)
 
 
 def test_match_throughput_kernel_rejects_what_it_does_not_take(dev):
     from depth_estimation_tpu_torch.ops import matching_experimental as mexp
-    f1, f2 = _features(dev, 8, 8, 33, 4, 4, seed=0)
-    with pytest.raises(ValueError):
-        mexp.match_flow_throughput(f1, f2, 4, 4)            # > 32 channels
     f1, f2 = _features(dev, 8, 8, 10, 4, 4, seed=0)
     with pytest.raises(ValueError, match="block_cols"):
         mexp.match_flow_throughput(f1, f2, 4, 4, 8, 12)
-    f1, f2 = _features(dev, 8, 8, 32, 64, 64, seed=0)
-    n0 = mexp.match_flow_throughput.launches
+    with pytest.raises(ValueError):
+        mexp.match_flow_throughput(f1, f2.cpu(), 4, 4)     # mixed devices
+    # a band that breaks the dy-major visit order is refused on the C side
+    bad = matching.MatchPlan(2, 2, 16, 16, 0, 2, 2)
     with pytest.raises(RuntimeError, match="unsupported configuration"):
-        mexp.match_flow_throughput(f1, f2, 64, 64)          # halo > shared memory
-    assert mexp.match_flow_throughput.launches == n0
+        mexp._match_flow_throughput_cuda(f1, f2, 4, 4, bad)
