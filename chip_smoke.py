@@ -58,7 +58,21 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      dependent half-sweeps); B2 (bf16, f32) and B5 through their wrappers
      on the plan's pixel blocking and on every other compiled blocking,
      and their issue floor (SASS instructions a cell of the plan's
-     instantiation, read with cuobjdump, over the card's issue rate).
+     instantiation, read with cuobjdump, over the card's issue rate);
+ 11. the flow trainer's path, every kernel count zeroed before it and read
+     after: a 5-frame forward-camera sequence (640x480, numpy from a seed)
+     written as PNG, ``load_data_optical_flow`` ('sfm', cross-correlation
+     GT) at car_model's geometry on the card, and its batched loader card
+     vs CPU with the same RANSAC noise; one pair through the 'liu' GT
+     (B4); ``sample_patches`` (2048 + 256) and ``Trainer`` at car_model
+     width, B=64, one epoch of 32 steps at the demo's rate (the loss must
+     fall), one 'soft' and one 'mse' step, 3 steps card vs CPU;
+     ``sample_foveas`` and ``MultiscaleTrainer`` at config3's widths, B=32,
+     8 steps, 2 card vs CPU; ``score_epoch``, ``save_model``, and one
+     ``BatchedDepthEstimator`` step on the saved checkpoint (B1); then the
+     step times (TF32 off, and a Trainer step with cuDNN's TF32 on), each
+     step's kernels and device time (torch.profiler), and the loader's
+     time for 4 pairs.
 
 The build's registers and spills are printed for every kernel.
 
@@ -70,17 +84,22 @@ bound from this run's inputs; B1 at bf16; B1, B2 and B5 also their
 largest error at the C24 shapes; B3 in f32 with grid_sample's time as
 library_ms, both also 10 calls back to back, and its bf16 times and
 bound; B4 also with its dependency
-floor and its device time over a solve), the card, and {"ok": true,
+floor and its device time over a solve; B1 and B4 also their launches
+on the training phase), the card, and {"ok": true,
 "device": {...}}. A longer report goes to
 chiprun_out/chip_smoke_report.json.
 """
 
+import gc
 import json
 import os
 import statistics
+import struct
 import subprocess
 import sys
+import tempfile
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -151,6 +170,24 @@ C4_CART = (240, 320)        # the cartesian frames warped to polar
 TOL_AGREE = 0.999
 TOL_COST_REL = 1e-5
 TOL_RADIAL_COST_REL = 1e-4
+# the training phase: a 5-frame forward-camera sequence at ARDRONE's
+# 640x480 through the 'sfm' loader, the single-scale trainer at car_model
+# width (examples/train_car_demo.py:40-45: lr 2e-2, decay 1e-5, nll, B=64)
+# on 2048 patches, and the multiscale trainer at config3's widths (B=32).
+# Card vs CPU, TF32 off: trainer weights after 3 steps (2 multiscale)
+# within TOL_TRAIN_PARAM (XLA's and torch's, or cuDNN's and the CPU's,
+# convolution gradients sum in other orders; the CPU tests hold the port
+# to the JAX package at the same bound); loader warps within the C6
+# bounds as intensities, the masks on TOL_E2E_MASK of the pixels, the GT
+# equal on TOL_TRAIN_GT of the pixels confident on both (a 1e-5 change of
+# R moves a WTA pick between costs within rounding)
+TRAIN_FRAMES, TRAIN_N, TRAIN_TEST, TRAIN_B = 5, 2048, 256, 64
+TRAIN_LEARNING = dict(rate=2e-2, rate_decay=1e-5, criterion="nll",
+                      batch_size=TRAIN_B)
+MS_B, MS_STEPS = 32, 8
+TOL_TRAIN_PARAM = 1e-5
+TOL_TRAIN_LOSS_REL = 1e-5
+TOL_TRAIN_GT = 0.99
 # B4's dependency floor: the no-arithmetic probe's half-sweeps a timing
 PROBE_HALF_SWEEPS = 400
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, FP32 FLOP/s outside
@@ -1331,6 +1368,370 @@ def phase_timing(dev, card, ests, frames, gt_frames, report):
     return rows, bounds, b4_solve, floors
 
 
+# ---------------------------------------------------------------------------
+# the training phase
+# ---------------------------------------------------------------------------
+
+def write_png(path, rgb):
+    """uint8 (H, W, 3) as an 8-bit RGB PNG: unfiltered rows, zlib."""
+    h, w, _ = rgb.shape
+    raw = b"".join(b"\x00" + rgb[y].tobytes() for y in range(h))
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xffffffff))
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+
+
+def forward_sequence(seed, n, h=480, w=640):
+    """n uint8 frames of a camera stepping forward through a scene of
+    smoothly varying depth, made with numpy: frame k samples a smooth
+    random texture at (p - c)(1 - k s(p)) + c, s 2-4% a step (the style of
+    forward_frames, with its k-th step; flow reaches 3-6 px at the edges of
+    the 320x180 working size, inside the 16x16 GT window)."""
+    from depth_estimation_tpu_torch.data import images
+    rng = np.random.RandomState(seed)
+    base = images.scale_np(rng.rand(h // 4, w // 4, 3).astype(np.float32), h, w)
+    s = 0.02 + 0.02 * images.scale_np(rng.rand(3, 4).astype(np.float32), h, w)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    frames = []
+    for k in range(n):
+        f = 1.0 - k * s
+        xs = np.clip(w / 2 + (xx - w / 2) * f, 0, w - 1)
+        ys = np.clip(h / 2 + (yy - h / 2) * f, 0, h - 1)
+        x0, y0 = np.floor(xs).astype(int), np.floor(ys).astype(int)
+        x1, y1 = np.minimum(x0 + 1, w - 1), np.minimum(y0 + 1, h - 1)
+        fx, fy = (xs - x0)[..., None], (ys - y0)[..., None]
+        img = ((1 - fy) * ((1 - fx) * base[y0, x0] + fx * base[y0, x1])
+               + fy * ((1 - fx) * base[y1, x0] + fx * base[y1, x1]))
+        frames.append((np.clip(img, 0, 1) * 255).astype(np.uint8))
+    return frames
+
+
+def loader_trace(frames, cal, noise, dev):
+    """The 'sfm' loader's ego-motion on ``dev``: per pair, RANSAC's winning
+    sample's number of distinct points, and R."""
+    from depth_estimation_tpu_torch.geometry3d import egomotion as ego
+    from depth_estimation_tpu_torch.geometry3d import undistort as undist
+    prevs = torch.as_tensor(np.stack(frames[:-1]), dtype=torch.float32, device=dev)
+    imgs = torch.as_tensor(np.stack(frames[1:]), dtype=torch.float32, device=dev)
+    u1 = undist.undistort_image(prevs, cal.K, cal.distortion)
+    u2 = undist.undistort_image(imgs, cal.K, cal.distortion)
+    pts, pvalid = ego.good_features_to_track_batched(
+        u1, cal.sfm.max_points, cal.sfm.points_quality)
+    pts2, status = ego.track_lk_batched(u1, u2, pts)
+    valid = pvalid & status
+    noise = noise.to(dev)
+    idx, _, inls = ego.ransac_hypotheses(pts, pts2, valid, cal.K, noise)
+    winners = idx[torch.arange(idx.shape[0]), inls.argmax(-1)]
+    em = ego.get_ego_motion_from_matches_batched(pts, pts2, valid, cal.K, noise)
+    return [len(set(w.tolist())) for w in winners], em.R.cpu()
+
+
+def interleave(raw):
+    """(warped previous, current) pairs of a loaded dataset in the
+    samplers' layout: images, flows and masks."""
+    images, flows, masks = [], [], []
+    for k in range(len(raw["flow"])):
+        images.extend([raw["warped_images"][k], raw["images"][k]])
+        flows.extend([raw["flow"][k], None])
+        masks.extend([raw["masks"][k], None])
+    return images, flows[:-1], masks[:-1]
+
+
+def trainer_pair(cls, geom, lrn, seed, dev):
+    """The same seeded weights in a trainer on the card and one on the CPU."""
+    card = cls(geom, lrn, device=dev).init(torch.Generator().manual_seed(seed))
+    cpu = cls(geom, lrn, device="cpu").reset_optimizer()
+    cpu.model.load_state_dict(card.model.state_dict())
+    return card, cpu
+
+
+def max_param_diff(a, b):
+    sa, sb = a.state_dict(), b.state_dict()
+    return max((sa[k].cpu() - sb[k]).abs().max().item() for k in sa)
+
+
+def device_profile(fn):
+    """One call of fn (after one warm-up) under torch.profiler: the number
+    of kernels it ran on the card and their summed device time in ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events()
+          if getattr(e, "device_type", None) == DeviceType.CUDA
+          and e.name not in ("Buffer Flush", "Activity Buffer Request")]
+    return len(ev), sum(e.time_range.elapsed_us() for e in ev) / 1e3
+
+
+def phase_training(dev, card, report):
+    """The flow trainer's path on the card: frames on disk -> 'sfm' rectified
+    pairs + GT (and one pair through the 'liu' GT, B4) -> patches -> the
+    single-scale trainer at car_model width and the multiscale trainer at
+    config3's -> scoring -> a checkpoint -> the online estimator on it (B1).
+    Every kernel count is zeroed before and read after. Returns the counts
+    and the timings."""
+    from depth_estimation_tpu_torch import api_batched
+    from depth_estimation_tpu_torch.data import datasets
+    from depth_estimation_tpu_torch.data.images import ImageLoader
+    from depth_estimation_tpu_torch.flow import sor_kernel
+    from depth_estimation_tpu_torch.geometry import Geometry, Learning
+    from depth_estimation_tpu_torch.geometry3d import egomotion as ego
+    from depth_estimation_tpu_torch.geometry3d.calibration import ARDRONE
+    from depth_estimation_tpu_torch.models import io as mio
+    from depth_estimation_tpu_torch.ops import matching, matching_experimental, warp
+    from depth_estimation_tpu_torch.training import curves, train
+    t_phase = time.perf_counter()
+    geom, _, _, _ = mio.load_model(CAR_MODEL)
+    cal = ARDRONE
+    counters = {"match_fused": matching.match_flow_fused,
+                "warp_banded": warp.banded_bilinear_warp,
+                "match_fast": matching.match_flow_fast,
+                "sor_redblack": sor_kernel.sor_redblack,
+                "match_throughput": matching_experimental.match_flow_throughput}
+    for fn in counters.values():
+        fn.launches = 0
+    out = {}
+    tmp = tempfile.TemporaryDirectory()
+    root = tmp.name
+    os.makedirs(os.path.join(root, "images"))
+    frames_u8 = forward_sequence(21, TRAIN_FRAMES, cal.hImg, cal.wImg)
+    for i, f in enumerate(frames_u8):
+        write_png(os.path.join(root, "images", f"{i:09d}.png"), f)
+    noise = ego.gumbel_noise(64, cal.sfm.max_points, "cpu")
+
+    # 1. the loader on the card
+    raw = datasets.load_data_optical_flow(geom, cal, root, TRAIN_FRAMES,
+                                          motion_correction="sfm",
+                                          noise=noise, device=dev)
+    torch.cuda.synchronize()
+    n_pairs = len(raw["flow"])
+    good = [f is not None for f in raw["flow"]]
+    loader = ImageLoader(root, cal.hImg, cal.wImg)
+    frames = [loader.get_next_frame() for _ in range(TRAIN_FRAMES)]
+    pairs = {d: datasets.load_rectified_pairs_batched(geom, cal, frames,
+                                                      noise=noise, device=d)
+             for d in (dev, "cpu")}
+    conf_share = [float((p.conf > 0).mean()) if p.good else 0.0
+                  for p in pairs[dev]]
+    check(n_pairs == TRAIN_FRAMES - 1, f"loader made {n_pairs} pairs")
+    print(f"training: loader 'sfm' + cross-correlation GT, {n_pairs} pairs of "
+          f"{cal.hImg}x{cal.wImg} PNG frames -> {geom.hImg}x{geom.wImg}: good "
+          f"{sum(good)}/{n_pairs}, GT confident share "
+          f"{[round(c, 4) for c in conf_share]}", flush=True)
+    check(sum(good) >= n_pairs // 2, f"loader: good on {good}")
+
+    # 2. card vs CPU, the same frames and RANSAC noise
+    distinct, r_card = loader_trace(frames, cal, noise, dev)
+    _, r_cpu = loader_trace(frames, cal, noise, "cpu")
+    rows = []
+    for k in range(n_pairs):
+        a, b = pairs[dev][k], pairs["cpu"][k]
+        row = dict(good=[a.good, b.good], distinct=distinct[k],
+                   R_max_diff=(r_card[k] - r_cpu[k]).abs().max().item())
+        if a.good and b.good:
+            d = np.abs(a.prev_warped - b.prev_warped)
+            both = (a.conf > 0) & (b.conf > 0)
+            row.update(warp_mean=float(d.mean()),
+                       warp_p99=float(np.quantile(d, 0.99)),
+                       mask_agreement=float((a.mask == b.mask).mean()),
+                       gt_equal=float((a.flow == b.flow).all(0)[both].mean()),
+                       gt_both_confident=float(both.mean()))
+        rows.append(row)
+        print(f"training: loader card vs CPU, pair {k}: {row}", flush=True)
+    out["loader_card_vs_cpu"] = rows
+
+    # 3. one pair through the 'liu' GT (B4)
+    b4_0 = sor_kernel.sor_redblack.launches
+    liu = datasets.load_rectified_pair(geom, cal, frames[0], frames[1],
+                                       groundtruth="liu", noise=noise,
+                                       device=dev)
+    torch.cuda.synchronize()
+    b4 = sor_kernel.sor_redblack.launches - b4_0
+    print(f"training: load_rectified_pair 'liu', good {liu.good}, {b4} B4 "
+          f"launches", flush=True)
+    check(b4 > 0, "the liu GT launched no B4")
+    check(liu.good and liu.flow is not None and np.isfinite(liu.flow).all(),
+          "liu pair")
+
+    # 4. single-scale training at car_model width
+    images, flows, masks = interleave(raw)
+    lrn = Learning(**TRAIN_LEARNING)
+    rng = np.random.RandomState(0)
+    ds = train.sample_patches(geom, lrn, images, flows, masks, TRAIN_N, rng)
+    test_ds = train.sample_patches(geom, lrn, images, flows, masks,
+                                   TRAIN_TEST, rng)
+    check(len(ds) == TRAIN_N and len(test_ds) == TRAIN_TEST,
+          f"sampled {len(ds)} / {len(test_ds)} patches")
+    trainer, cpu_trainer = trainer_pair(train.Trainer, geom, lrn, 0, dev)
+    t0 = time.perf_counter()
+    m = trainer.epoch(ds, shuffle_rng=np.random.RandomState(1))
+    epoch_s = time.perf_counter() - t0
+    losses = m["losses"]
+    first8, last8 = float(np.mean(losses[:8])), float(np.mean(losses[-8:]))
+    print(f"training: Trainer car_model width, B={TRAIN_B}, {len(losses)} "
+          f"steps in {epoch_s:.1f} s: loss first 8 {first8:.4f}, last 8 "
+          f"{last8:.4f}, acc {m['acc']:.4f}, grad_ok all "
+          f"{all(m['grad_ok'])}", flush=True)
+    out["trainer"] = dict(losses=losses, accs=m["accs"], first8=first8,
+                          last8=last8, epoch_s=epoch_s)
+    check(len(losses) == TRAIN_N // TRAIN_B, f"{len(losses)} steps")
+    check(all(m["grad_ok"]), "a training step had non-finite gradients")
+    check(last8 < first8, f"loss did not fall: {first8} -> {last8}")
+    sel = torch.arange(TRAIN_B, device=dev)
+    x1 = torch.as_tensor(ds.patches1[:TRAIN_B], device=dev)
+    x2 = torch.as_tensor(ds.patches2[:TRAIN_B], device=dev)
+    it = torch.as_tensor(ds.itargets[:TRAIN_B], device=dev)
+    yx = torch.as_tensor(ds.targets_yx[:TRAIN_B], device=dev)
+    for crit in ("soft", "mse"):
+        other = train.Trainer(geom, Learning(**dict(
+            TRAIN_LEARNING, criterion=crit, soft_targets=crit == "soft")),
+            device=dev).reset_optimizer()
+        other.model.load_state_dict(trainer.model.state_dict())
+        aux = other.step(x1, x2, it, other.soft_targets(yx[sel], TRAIN_B))
+        out[f"step_{crit}"] = dict(loss=aux["loss"].item(),
+                                   grad_ok=bool(aux["grad_ok"]))
+        print(f"training: one {crit} step, loss {out[f'step_{crit}']['loss']:.4f}"
+              f", grad_ok {out[f'step_{crit}']['grad_ok']}", flush=True)
+        check(out[f"step_{crit}"]["grad_ok"]
+              and np.isfinite(out[f"step_{crit}"]["loss"]), f"{crit} step")
+
+    # 5. card vs CPU: 3 steps from the same weights on the same batches
+    small = train.PatchDataset(ds.patches1[:3 * TRAIN_B], ds.patches2[:3 * TRAIN_B],
+                               ds.targets_yx[:3 * TRAIN_B], ds.itargets[:3 * TRAIN_B])
+    cmp_card, cmp_cpu = trainer_pair(train.Trainer, geom, lrn, 5, dev)
+    mc = cmp_card.epoch(small, shuffle_rng=np.random.RandomState(2))
+    mh = cmp_cpu.epoch(small, shuffle_rng=np.random.RandomState(2))
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(mc["losses"], mh["losses"]))
+    pdiff = max_param_diff(cmp_card.model, cmp_cpu.model)
+    print(f"training: Trainer card vs CPU, 3 steps: loss rel diff "
+          f"{loss_rel:.2e}, parameters max diff {pdiff:.2e}", flush=True)
+    out["trainer_card_vs_cpu"] = dict(loss_rel=loss_rel, param_max_diff=pdiff)
+
+    # 6. multiscale training at config3 widths
+    g3 = Geometry(**C3_GEOMETRY)
+    lrn3 = Learning(**dict(TRAIN_LEARNING, batch_size=MS_B))
+    fds = train.sample_foveas(g3, lrn3, images, flows, masks, MS_B * MS_STEPS,
+                              np.random.RandomState(3))
+    ms_trainer, ms_cpu = trainer_pair(train.MultiscaleTrainer, g3, lrn3, 7, dev)
+    mm = ms_trainer.epoch(fds, shuffle_rng=np.random.RandomState(4))
+    print(f"training: MultiscaleTrainer config3 widths, B={MS_B}, "
+          f"{len(mm['losses'])} steps: losses "
+          f"{[round(x, 4) for x in mm['losses']]}, grad_ok all "
+          f"{all(mm['grad_ok'])}", flush=True)
+    check(len(mm["losses"]) == MS_STEPS and all(mm["grad_ok"])
+          and np.isfinite(mm["losses"]).all(), "multiscale training")
+    ms_card, ms_cpu = trainer_pair(train.MultiscaleTrainer, g3, lrn3, 8, dev)
+    two = train.FoveaDataset(*(getattr(fds, k) for k in (
+        "images1", "images2", "img_idx", "ys", "xs")),
+        fds.targets_yx[:2 * MS_B], fds.itargets[:2 * MS_B],
+        crops1=fds.crops1[:2 * MS_B], crops2=fds.crops2[:2 * MS_B])
+    a = ms_card.epoch(two, shuffle_rng=np.random.RandomState(5))
+    b = ms_cpu.epoch(two, shuffle_rng=np.random.RandomState(5))
+    ms_loss_rel = max(abs(x - y) / abs(y) for x, y in zip(a["losses"], b["losses"]))
+    ms_pdiff = max_param_diff(ms_card.model, ms_cpu.model)
+    print(f"training: MultiscaleTrainer card vs CPU, 2 steps: loss rel diff "
+          f"{ms_loss_rel:.2e}, parameters max diff {ms_pdiff:.2e}", flush=True)
+    out["multiscale"] = dict(losses=mm["losses"], card_vs_cpu_loss_rel=ms_loss_rel,
+                             card_vs_cpu_param_max_diff=ms_pdiff)
+
+    # 7. scoring, the checkpoint, and the online estimator on it (B1)
+    full_pairs = [(raw["warped_images"][k], raw["images"][k])
+                  for k in range(n_pairs) if raw["flow"][k] is not None]
+    full_flows = [f for f in raw["flow"] if f is not None]
+    score = curves.score_epoch(trainer.model, geom, lrn, test_ds, full_pairs,
+                               full_flows)
+    ckpt = os.path.join(root, "models", mio.model_dir_name(geom, lrn))
+    mio.save_model(ckpt, geom, lrn, trainer.model, [score], 0)
+    g2, _, params2, _ = mio.load_model(ckpt)
+    est = api_batched.BatchedDepthEstimator(g2, params2, cal, head="mean",
+                                            device=dev)
+    b1_0 = matching.match_flow_fused.launches
+    est.reset(np.stack(frames_u8[:-1]))
+    xflow, mask, depth, good_est = est.next_frames(np.stack(frames_u8[1:]))
+    torch.cuda.synchronize()
+    b1 = matching.match_flow_fused.launches - b1_0
+    print(f"training: score {score}; checkpoint {os.path.basename(ckpt)}; "
+          f"BatchedDepthEstimator on it, B={n_pairs}: good "
+          f"{good_est.tolist()}, {b1} B1 launches", flush=True)
+    out["score"] = score
+    check(b1 == 1, f"B1 launched {b1} times for one step")
+    check(bool(torch.isfinite(xflow[mask > 0]).all()), "estimator flow")
+    check(0 <= score["test_acc"] <= 1 and np.isfinite(score["test_err"]),
+          f"score {score}")
+    counts = {name: fn.launches for name, fn in counters.items()}
+    out["launches"] = counts
+    print(f"training: launches on this path {counts}", flush=True)
+    check(counts["sor_redblack"] > 0 and counts["match_fused"] > 0,
+          f"training path launches {counts}")
+
+    # 8. card vs CPU checks, after every reading is printed
+    for k, row in enumerate(rows):
+        check(row["good"][0] == row["good"][1], f"loader pair {k}: good differs")
+        if row["distinct"] == 8 and all(row["good"]):
+            check(row["R_max_diff"] <= TOL_R, f"loader pair {k}: R {row}")
+            check(row["warp_mean"] <= TOL_E2E_MEAN_PX
+                  and row["warp_p99"] <= TOL_E2E_P99_PX, f"loader pair {k}: {row}")
+            check(row["mask_agreement"] >= TOL_E2E_MASK, f"loader pair {k}: {row}")
+            check(row["gt_equal"] >= TOL_TRAIN_GT, f"loader pair {k}: {row}")
+    check(loss_rel <= TOL_TRAIN_LOSS_REL and pdiff <= TOL_TRAIN_PARAM,
+          f"trainer card vs CPU: {loss_rel} {pdiff}")
+    check(ms_loss_rel <= TOL_TRAIN_LOSS_REL and ms_pdiff <= TOL_TRAIN_PARAM,
+          f"multiscale trainer card vs CPU: {ms_loss_rel} {ms_pdiff}")
+
+    # 9. timing, CUDA events, median of 10 after 2 warm-ups (TF32 off, as
+    # for the whole run; the trainer step also with cuDNN's TF32 on, its
+    # default)
+    soft0 = trainer.soft_targets(yx, TRAIN_B)
+    times = {"trainer_step_ms": cuda_ms(lambda: trainer.step(x1, x2, it, soft0),
+                                        reps=10, warmup=2)}
+    torch.backends.cudnn.allow_tf32 = True
+    times["trainer_step_tf32_ms"] = cuda_ms(
+        lambda: trainer.step(x1, x2, it, soft0), reps=10, warmup=3)
+    torch.backends.cudnn.allow_tf32 = False
+    # the same with the collector's live objects frozen: how much of a
+    # step is the Python collector walking what earlier phases left alive
+    gc.collect()
+    times["live_python_objects"] = len(gc.get_objects())
+    gc.freeze()
+    times["trainer_step_gc_frozen_ms"] = cuda_ms(
+        lambda: trainer.step(x1, x2, it, soft0), reps=10, warmup=2)
+    gc.unfreeze()
+    c1 = torch.as_tensor(fds.crops1[:MS_B], device=dev)
+    c2 = torch.as_tensor(fds.crops2[:MS_B], device=dev)
+    it3 = torch.as_tensor(fds.itargets[:MS_B], device=dev)
+    soft3 = ms_trainer.soft_targets(None, MS_B)
+    times["multiscale_step_ms"] = cuda_ms(
+        lambda: ms_trainer.step(c1, c2, it3, soft3), reps=10, warmup=2)
+    times["loader_4_pairs_ms"] = cuda_ms(
+        lambda: datasets.load_data_optical_flow(geom, cal, root, TRAIN_FRAMES,
+                                                noise=noise, device=dev),
+        reps=10, warmup=1)
+    times["patches_per_s"] = TRAIN_B / (times["trainer_step_ms"] / 1e3)
+    # what a step is bound by: its kernels and their device time
+    for name, fn in (("trainer_step", lambda: trainer.step(x1, x2, it, soft0)),
+                     ("multiscale_step",
+                      lambda: ms_trainer.step(c1, c2, it3, soft3))):
+        n, busy = device_profile(fn)
+        times[f"{name}_kernels"] = n
+        times[f"{name}_device_ms"] = busy
+    out["times"] = times
+    for k, v in times.items():
+        print(f"[{card}] training {k}: {v:.3f}", flush=True)
+    tmp.cleanup()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"training: phase took {out['seconds']:.1f} s", flush=True)
+    report["training"] = out
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check "
@@ -1373,6 +1774,7 @@ def main() -> int:
     phase_version2(dev, report)
     rows, bounds, b4_solve, floors = phase_timing(dev, card, ests, frames,
                                                   gt_frames, report)
+    training = phase_training(dev, card, report)
 
     def entry(name, fn, src, replaces, row):
         return {"name": fn, "route": "cuda",
@@ -1430,6 +1832,12 @@ def main() -> int:
         ms_back_to_back_bf16=rows["warp_banded_bfloat16_back_to_back"][0],
         library_ms_back_to_back_bf16=rows[
             "warp_banded_bfloat16_back_to_back"][1])
+    # the training phase's own run of its path (B4 through the liu GT, B1
+    # through the estimator on the saved checkpoint)
+    for name, key in (("sor_redblack", "sor_redblack"),
+                      ("match_flow_fused", "match_fused")):
+        next(k for k in kernels if k["name"] == name).update(
+            launches_training_phase=training[key])
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} not launched on its path")
     report["kernels"] = kernels

@@ -21,12 +21,18 @@ Each has a plain PyTorch twin in the same module, used for CPU tensors.
 Layer map of what is ported so far:
   geometry / codecs            static config + displacement index codecs
   geometry3d/                  calibration, undistortion + rotation warps,
-                               Shi-Tomasi + windowed LK + essential RANSAC,
+                               Shi-Tomasi + windowed and full-image LK +
+                               essential RANSAC, the 4-DoF motion model,
                                polar warps and radial flow -> depth
-  models/                      conv trunk, single-scale flow model, the
-                               multiscale, radial, version2 and legacy
-                               families, weights IO and bridges
-  data/                        separable-matmul resize, flow ground truth
+  models/                      conv trunk, single-scale flow model with its
+                               training heads, the multiscale, radial,
+                               version2 and legacy families, checkpoints
+                               (read and write) and weight bridges
+  data/                        image files and resizes, flow ground truth,
+                               the flow trainer's frame-sequence datasets
+  training/                    SGD with torch-optim semantics, criteria,
+                               patch and fovea samplers, the single-scale
+                               and multiscale trainers, scores and curves
   flow/                        Ce Liu's variational solver
   ops/                         matchers, banded warp, confidence masks,
                                post-processing filters, normalizations

@@ -319,9 +319,9 @@ def im2feature(img: torch.Tensor) -> torch.Tensor:
 # Gaussian-mixture noise model
 # ---------------------------------------------------------------------------
 
-def gaussian_mixture_init(n_channels: int, device="cpu"):
+def gaussian_mixture_init(n_channels: int, device):
     """Per-channel 2-component mixture (alpha, sigma, beta) = (0.95, 0.05,
-    0.5)."""
+    0.5), on ``device``."""
     return tuple(torch.full((n_channels,), v, dtype=torch.float32,
                             device=device) for v in (0.95, 0.05, 0.5))
 

@@ -120,8 +120,8 @@ class Geometry:
 
 @dataclasses.dataclass(frozen=True)
 class Learning:
-    """Training hyper-parameters (carried by checkpoints; the port does not
-    train yet)."""
+    """Training hyper-parameters (``training.train``; carried by
+    checkpoints)."""
 
     rate: float = 5e-3
     rate_decay: float = 5e-7

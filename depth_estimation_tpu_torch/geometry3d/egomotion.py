@@ -1,6 +1,10 @@
-"""Ego-motion from a frame pair: Shi-Tomasi corners, window-cached pyramidal
-Lucas-Kanade, and an 8-point essential-matrix RANSAC (port of the online
-parts of ``depth_estimation_tpu.geometry3d.egomotion``).
+"""Ego-motion from a frame pair (port of
+``depth_estimation_tpu.geometry3d.egomotion``): Shi-Tomasi corners,
+pyramidal Lucas-Kanade (window-cached for the online program, full-image
+for the offline loaders), an 8-point essential-matrix RANSAC, the 4-DoF
+(pan, tilt, zoom, roll) least-squares model with its RANSAC and
+nearest-neighbour affine warp (the 'mc' motion correction), and the
+epipolar helpers (F from E, E from (R, T), the epipole).
 
 Everything is batched over a leading B axis; the per-pair functions add and
 drop it. Shapes are static as in the reference: always ``max_points``
@@ -16,7 +20,12 @@ Where the port differs from the JAX module, on purpose:
     ties at score 0; ``torch.topk`` leaves tie order unspecified on CUDA.
   * ``_gather_window`` reads the image rounded to bf16, as the reference's
     one-hot matmuls at ``Precision.DEFAULT`` do on every backend, but by
-    integer indexing.
+    integer indexing. The full tracker's bilinear patches
+    (``_sample_patches``) are four gathers blended rows first, then
+    columns, the order of the reference's separable selection products.
+  * ``lsq_trans_ransac`` takes its (n_samples, 5) sample indices as an
+    argument (default: a CPU ``torch.Generator`` seeded 0), as RANSAC's
+    noise above.
 
 Gray levels and corner scores stay in the input's dtype (bf16 for a bf16
 stream state), rounded where the reference rounds them; LK's windows and
@@ -28,6 +37,7 @@ from __future__ import annotations
 from functools import lru_cache
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -294,6 +304,91 @@ def track_lk_windowed(img1, img2, pts, win: int = 15, n_levels: int = 3,
 
 
 # ---------------------------------------------------------------------------
+# Full-image pyramidal Lucas-Kanade (the offline loaders' tracker)
+# ---------------------------------------------------------------------------
+
+def _axis_taps(c: torch.Tensor, n: int):
+    """Clamped-corner bilinear taps along one axis: (i0, i1, w) with i0 =
+    floor(c) of c clamped into [0, n - 1], i1 = i0 + 1 (clamped; its weight
+    w is 0 there)."""
+    c = c.clamp(0.0, n - 1.0)
+    c0 = torch.floor(c)
+    i0 = c0.long()
+    return i0, (i0 + 1).clamp(max=n - 1), c - c0
+
+
+def _sample_patches(img: torch.Tensor, pts: torch.Tensor, win: int) -> torch.Tensor:
+    """Bilinear (win, win) patches of img (B, H, W) centered (ceil) on pts
+    (B, N, 2) as (x, y), clamped corners. Returns (B, N, win, win)."""
+    B, H, W = img.shape
+    off = torch.arange(win, dtype=torch.float32, device=img.device) - (win - 1) / 2.0
+    y0, y1, wy = _axis_taps(pts[..., 1, None] + off, H)       # (B, N, win)
+    x0, x1, wx = _axis_taps(pts[..., 0, None] + off, W)
+    flat = img.float().reshape(B, H * W)
+
+    def at(yi, xi):
+        lin = yi[..., :, None] * W + xi[..., None, :]          # (B, N, win, win)
+        return torch.gather(flat, 1, lin.reshape(B, -1)).reshape(lin.shape)
+    wy = wy[..., :, None]
+    wx = wx[..., None, :]
+    c0 = (1 - wy) * at(y0, x0) + wy * at(y1, x0)                # rows first
+    c1 = (1 - wy) * at(y0, x1) + wy * at(y1, x1)
+    return (1 - wx) * c0 + wx * c1
+
+
+def track_lk_batched(
+    imgs1: torch.Tensor, imgs2: torch.Tensor, pts: torch.Tensor,
+    win: int = 15, n_levels: int = 3, n_iters: int = 10,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pyramidal LK over the whole image (OpenCV TrackPyrLK semantics):
+    each Gauss-Newton iteration resamples the moving patch from the full
+    level, so the motion it follows is unbounded. imgs (B, H, W[, C]), pts
+    (B, N, 2) -> (pts2 (B, N, 2), status (B, N))."""
+    g1 = _to_gray_batched(imgs1)
+    g2 = _to_gray_batched(imgs2)
+    pyr1, pyr2 = [g1], [g2]
+    for _ in range(n_levels - 1):
+        pyr1.append(avg_downsample(pyr1[-1][..., None], 2)[..., 0])
+        pyr2.append(avg_downsample(pyr2[-1][..., None], 2)[..., 0])
+
+    d = torch.zeros_like(pts)
+    for lvl in range(n_levels - 1, -1, -1):
+        scale = 2.0 ** lvl
+        p_lvl = pts / scale
+        t = _sample_patches(pyr1[lvl], p_lvl, win)            # template
+        tx = ((t[..., :, 2:] - t[..., :, :-2]) / 2)[..., 1:-1, :]
+        ty = ((t[..., 2:, :] - t[..., :-2, :]) / 2)[..., :, 1:-1]
+        a11 = (tx * tx).sum((-2, -1))
+        a12 = (tx * ty).sum((-2, -1))
+        a22 = (ty * ty).sum((-2, -1))
+        det_c = (a11 * a22 - a12 * a12).clamp(min=1e-8)
+        for _ in range(n_iters):
+            w = _sample_patches(pyr2[lvl], p_lvl + d / scale, win)
+            err = (w - t)[..., 1:-1, 1:-1]
+            b1 = (err * tx).sum((-2, -1))
+            b2 = (err * ty).sum((-2, -1))
+            ddx = -(a22 * b1 - a12 * b2) / det_c
+            ddy = -(-a12 * b1 + a11 * b2) / det_c
+            d = d + torch.stack([ddx, ddy], -1) * scale
+
+    pts2 = pts + d
+    H, W = g1.shape[-2:]
+    m = win // 2 + 1
+    status = ((pts2[..., 0] >= m) & (pts2[..., 0] <= W - 1 - m)
+              & (pts2[..., 1] >= m) & (pts2[..., 1] <= H - 1 - m)
+              & torch.isfinite(pts2).all(-1))
+    return pts2, status
+
+
+def track_lk(img1, img2, pts, win: int = 15, n_levels: int = 3,
+             n_iters: int = 10):
+    """Per-pair form: img (H, W[, C]), pts (N, 2)."""
+    pts2, status = track_lk_batched(img1[None], img2[None], pts[None], win,
+                                    n_levels, n_iters)
+    return pts2[0], status[0]
+
+
+# ---------------------------------------------------------------------------
 # Essential-matrix RANSAC
 # ---------------------------------------------------------------------------
 
@@ -421,11 +516,14 @@ def get_ego_motion_batched(imgs1, imgs2, K, max_points: int = 400,
                            quality: float = 0.001, noise=None,
                            lk_iters: int = 10, n_samples: int = 64,
                            selector: str = "topk",
-                           lk_search: int = 32) -> EgoMotion:
-    """Ego-motion over B frame pairs: corners in imgs1, windowed LK into
-    imgs2, essential RANSAC. imgs (B, H, W[, 3]). ``noise`` (n_samples, 8,
+                           lk_search: int = 32,
+                           tracker: str = "windowed") -> EgoMotion:
+    """Ego-motion over B frame pairs: corners in imgs1, LK into imgs2,
+    essential RANSAC. imgs (B, H, W[, 3]). ``noise`` (n_samples, 8,
     n_corners) is the RANSAC draw noise (default: gumbel_noise seeded 1);
-    n_corners is max_points, or the cell count of the 'grid' selector."""
+    n_corners is max_points, or the cell count of the 'grid' selector.
+    ``tracker``: 'windowed' (the online program's bounded-motion tracker)
+    or 'full' (``track_lk_batched``, the offline loaders')."""
     pts, pvalid = good_features_to_track_batched(imgs1, max_points, quality,
                                                  selector=selector)
     n = pts.shape[1]
@@ -435,16 +533,148 @@ def get_ego_motion_batched(imgs1, imgs2, K, max_points: int = 400,
         raise ValueError(f"noise shape {tuple(noise.shape)} != "
                          f"{(n_samples, 8, n)}")
     noise = noise.to(device=imgs1.device, dtype=torch.float32)
-    pts2, status = track_lk_windowed_batched(imgs1, imgs2, pts,
-                                             n_iters=lk_iters, search=lk_search)
+    if tracker == "windowed":
+        pts2, status = track_lk_windowed_batched(imgs1, imgs2, pts,
+                                                 n_iters=lk_iters,
+                                                 search=lk_search)
+    elif tracker == "full":
+        pts2, status = track_lk_batched(imgs1, imgs2, pts, n_iters=lk_iters)
+    else:
+        raise ValueError(f"unknown tracker {tracker!r}")
     return get_ego_motion_from_matches_batched(pts, pts2, pvalid & status, K,
                                                noise)
 
 
 def get_ego_motion(img1, img2, K, max_points: int = 400,
-                   quality: float = 0.001, noise=None) -> EgoMotion:
+                   quality: float = 0.001, noise=None,
+                   tracker: str = "windowed") -> EgoMotion:
     """Per-pair form of get_ego_motion_batched at the reference's defaults
-    (windowed tracker, 10 LK iterations, 64 RANSAC samples)."""
+    (10 LK iterations, 64 RANSAC samples). ``tracker``: 'windowed' (online
+    regime) or 'full' (offline loaders)."""
     em = get_ego_motion_batched(img1[None], img2[None], K, max_points, quality,
-                                noise)
+                                noise, tracker=tracker)
     return EgoMotion(*(a[0] for a in em))
+
+
+# ---------------------------------------------------------------------------
+# 4-DoF (pan, tilt, zoom, roll) model: the 'mc' motion correction
+# ---------------------------------------------------------------------------
+
+def _lsq_features(pts_in, pts_out, w_center, h_center):
+    """Flow f = pts_out - pts_in and the model's per-point basis, fit as
+    x1 p + x2 t + x3 z + x4 r with p = (-1, 0), t = (0, -1), z = -pt,
+    r = (pt_y, -pt_x), pt centered. pts (..., N, 2)."""
+    c = torch.tensor([w_center, h_center], dtype=torch.float32,
+                     device=pts_in.device)
+    pt = pts_in - c
+    f = (pts_out - c) - pt
+    p = torch.tensor([-1.0, 0.0], device=pt.device).expand(pt.shape)
+    t = torch.tensor([0.0, -1.0], device=pt.device).expand(pt.shape)
+    r = torch.stack([pt[..., 1], -pt[..., 0]], -1)
+    return f, (p, t, -pt, r)
+
+
+def _lsq_solve(pts_in, pts_out, w_center, h_center, weights=None):
+    """Weighted least-squares model (..., 4) of point sets (..., N, 2)."""
+    f, basis = _lsq_features(pts_in, pts_out, w_center, h_center)
+    Bm = torch.stack(basis, dim=-2)                     # (..., N, 4, 2)
+    if weights is None:
+        weights = torch.ones(f.shape[:-1], device=f.device)
+    Bw = Bm * weights[..., None, None]
+    A = torch.einsum("...nac,...nbc->...ab", Bw, Bm)
+    b = torch.einsum("...nac,...nc->...a", Bw, f)
+    eye = 1e-9 * torch.eye(4, device=A.device)
+    return torch.linalg.solve(A + eye, b)
+
+
+def _affine_from_model(x, w_center, h_center) -> torch.Tensor:
+    """The (2, 3) warp that undoes model x (4,): a rotation by -atan(x4)
+    about the center, then the pan/tilt shift."""
+    dtheta = -torch.atan(x[3])
+    c, s = torch.cos(dtheta), torch.sin(dtheta)
+    return torch.stack([
+        torch.stack([c, s, (1 - c) * w_center - s * h_center + x[0]]),
+        torch.stack([-s, c, s * w_center - (1 - c) * h_center + x[1]]),
+    ])
+
+
+def lsq_trans(pts_in, pts_out, w_center, h_center, weights=None):
+    """Weighted least squares of the 4-DoF model on pts (N, 2). Returns
+    (H (2, 3), x (4,))."""
+    x = _lsq_solve(pts_in, pts_out, w_center, h_center, weights)
+    return _affine_from_model(x, w_center, h_center), x
+
+
+def _model_residuals(x, pts_in, pts_out, w_center, h_center):
+    """|model flow - observed flow| per point: x (..., 4), pts (N, 2) ->
+    (..., N)."""
+    f, (p, t, z, r) = _lsq_features(pts_in, pts_out, w_center, h_center)
+    xs = x[..., None, None, :]
+    fout = xs[..., 0] * p + xs[..., 1] * t + xs[..., 2] * z + xs[..., 3] * r
+    e = fout - f
+    return torch.sqrt((e * e).sum(-1))
+
+
+def lsq_trans_ransac(pts_in, pts_out, w_center, h_center,
+                     n_samples: int = 64, sample_idx=None):
+    """RANSAC over minimal 5-point samples, all fitted and scored at once.
+    Inlier rule: residual <= sqrt(5.99) * std(residuals). ``sample_idx``
+    (n_samples, 5) indices into the N points (default: drawn with a CPU
+    ``torch.Generator`` seeded 0). Returns (H (2, 3), inlier count)."""
+    n = pts_in.shape[0]
+    if sample_idx is None:
+        gen = torch.Generator().manual_seed(0)
+        sample_idx = torch.randint(0, n, (n_samples, 5), generator=gen)
+    idx = torch.as_tensor(np.array(sample_idx), dtype=torch.long,
+                          device=pts_in.device)
+    xs = _lsq_solve(pts_in[idx], pts_out[idx], w_center, h_center)
+    d = _model_residuals(xs, pts_in, pts_out, w_center, h_center)   # (S, N)
+    thr = torch.sqrt(torch.tensor(5.99, device=d.device)) * d.std(
+        -1, correction=0)
+    inliers = (d <= thr[:, None]).sum(-1)
+    best = torch.argmax(inliers)
+    return _affine_from_model(xs[best], w_center, h_center), inliers[best]
+
+
+def warp_affine(img: torch.Tensor, H) -> torch.Tensor:
+    """Nearest-neighbour affine warp: out(i, j) = img(round(H [j i 1])),
+    zero where that lands outside. img (H, W[, C])."""
+    Hm = torch.as_tensor(H, dtype=torch.float32, device=img.device)
+    Ht, Wd = img.shape[0], img.shape[1]
+    xx = torch.arange(Wd, dtype=torch.float32, device=img.device)[None, :]
+    yy = torch.arange(Ht, dtype=torch.float32, device=img.device)[:, None]
+    xs = torch.round(Hm[0, 0] * xx + Hm[0, 1] * yy + Hm[0, 2]).long()
+    ys = torch.round(Hm[1, 0] * xx + Hm[1, 1] * yy + Hm[1, 2]).long()
+    ok = (xs >= 0) & (xs < Wd) & (ys >= 0) & (ys < Ht)
+    out = img[ys.clamp(0, Ht - 1), xs.clamp(0, Wd - 1)]
+    return out * ok[..., None] if img.ndim == 3 else out * ok
+
+
+# ---------------------------------------------------------------------------
+# Epipolar helpers
+# ---------------------------------------------------------------------------
+
+def fundamental_from_essential(E, K) -> torch.Tensor:
+    """F = K^-T E K^-1."""
+    E = torch.as_tensor(E, dtype=torch.float32)
+    Ki = torch.linalg.inv(torch.as_tensor(K, dtype=torch.float32,
+                                          device=E.device))
+    return Ki.T @ E @ Ki
+
+
+def essential_from_rt(R, T) -> torch.Tensor:
+    """E = [T]_x R."""
+    R = torch.as_tensor(R, dtype=torch.float32)
+    T = torch.as_tensor(T, dtype=torch.float32, device=R.device)
+    z = torch.zeros((), device=R.device)
+    tx = torch.stack([torch.stack([z, -T[2], T[1]]),
+                      torch.stack([T[2], z, -T[0]]),
+                      torch.stack([-T[1], T[0], z])])
+    return tx @ R
+
+
+def epipole(K, T) -> torch.Tensor:
+    """e2 = K T / T_3 as (x, y)."""
+    T = torch.as_tensor(T, dtype=torch.float32)
+    e = torch.as_tensor(K, dtype=torch.float32, device=T.device) @ T
+    return e[:2] / e[2]

@@ -1,19 +1,25 @@
-"""Single-scale patch-correlation flow model (the inference part of
+"""Single-scale patch-correlation flow model (port of
 ``depth_estimation_tpu.models.flow``): the conv trunk, the half-window crop
-of the reference branch, the fused-matcher forward, and the decode of a
-window distribution into flow (``process_output``, ``soft_argmax``)."""
+of the reference branch, the training heads (the cost volume through the
+plain ``match_ssd`` and its log-softmax / softmax, with gradients), the
+fused-matcher forward for inference, the target encoding
+(``prepare_target``), and the decode of a window distribution into flow
+(``process_output``, ``soft_argmax``)."""
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple
 
 import torch
+from torch import nn
 
 from .. import codecs
-from ..geometry import Geometry
+from ..geometry import Geometry, Learning
 from ..ops import extract, matching
-from .filters import ConvFilter
+from ..utils.device import resolve, true_div
+from .filters import ConvFilter, init_params
 
 
 def crop_features_center(geom: Geometry, f: torch.Tensor) -> torch.Tensor:
@@ -25,20 +31,51 @@ def crop_features_center(geom: Geometry, f: torch.Tensor) -> torch.Tensor:
     return f[..., h1:f.shape[-3] - h2, w1:f.shape[-2] - w2, :]
 
 
-class FlowModel:
-    """Single-scale matcher around a ``ConvFilter`` trunk."""
+class FlowModel(nn.Module):
+    """Single-scale matcher around a ``ConvFilter`` trunk (``filter``).
+    Without ``trunk`` it builds its own on ``device``: the card by default,
+    raising where there is none unless given ``device="cpu"``. A given
+    trunk stays where it is and is shared, not copied."""
 
-    def __init__(self, geometry: Geometry, trunk: ConvFilter = None):
+    def __init__(self, geometry: Geometry, trunk: ConvFilter = None,
+                 device="cuda"):
+        super().__init__()
         geometry.validate()
         if geometry.multiscale:
             raise ValueError("FlowModel is single-scale")
         self.geometry = geometry
-        self.filter = trunk if trunk is not None else ConvFilter(geometry)
+        if trunk is None:
+            trunk = ConvFilter(geometry).to(resolve(device))
+        self.filter = trunk
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> "FlowModel":
+        """Random trunk weights from a CPU ``torch.Generator``."""
+        init_params(self.filter, generator)
+        return self
 
     @torch.no_grad()
     def features(self, image: torch.Tensor) -> torch.Tensor:
-        """image (..., H, W, Cin) -> (..., H', W', K)."""
+        """image (..., H, W, Cin) -> (..., H', W', K), for inference."""
         return self.filter(image)
+
+    # -- training heads (with gradients) -----------------------------------
+
+    def costs(self, img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
+        """Cost volume of frame pairs (..., H, W, C): (..., H'', W'',
+        maxh * maxw) SSD costs."""
+        g = self.geometry
+        f1 = crop_features_center(g, self.filter(img1))
+        f2 = self.filter(img2)
+        return matching.match_ssd(f1, f2, g.maxh, g.maxw)
+
+    def log_scores(self, img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
+        """Training head of 'max': log softmax(-cost) over the window."""
+        return torch.log_softmax(-self.costs(img1, img2), dim=-1)
+
+    def scores(self, img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
+        """softmax(-cost) over the window."""
+        return torch.softmax(-self.costs(img1, img2), dim=-1)
 
     @torch.no_grad()
     def forward_fused(self, img1: torch.Tensor, img2: torch.Tensor):
@@ -47,6 +84,42 @@ class FlowModel:
         f1 = crop_features_center(g, self.features(img1))
         f2 = self.features(img2)
         return matching.match_flow_fused(f1, f2, g.maxh, g.maxw)
+
+
+# ---------------------------------------------------------------------------
+# Target encoding (prepareTarget)
+# ---------------------------------------------------------------------------
+
+def window_bounds(geom: Geometry) -> Tuple[int, int, int, int]:
+    """(lo_h, hi_h, lo_w, hi_w): the centered displacements a target may
+    take, the window's (the coarsest scale's for a multiscale geometry)."""
+    if geom.multiscale:
+        mh, mw = geom.maxh * geom.rmax, geom.maxw * geom.rmax
+        return (-math.ceil(mh / 2) + 1, mh // 2,
+                -math.ceil(mw / 2) + 1, mw // 2)
+    return -geom.halfh1, geom.halfh2, -geom.halfw1, geom.halfw2
+
+
+def prepare_target(geom: Geometry, learning: Learning, target_yx
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Encode continuous GT displacements (..., 2) as (dy, dx) into
+    (itarget, target): displacements outside the window become (0, 0);
+    itarget is the flat index; with soft targets, target is the
+    unnormalized Gaussian exp(-d^2 / st_sigma2) over the window cells
+    (..., n_indices), else itarget again. Multiscale geometries clamp to
+    the coarsest window."""
+    t = torch.as_tensor(target_yx)
+    dy, dx = t[..., 0], t[..., 1]
+    lo_h, hi_h, lo_w, hi_w = window_bounds(geom)
+    inside = (dy >= lo_h) & (dy <= hi_h) & (dx >= lo_w) & (dx <= hi_w)
+    dy = torch.where(inside, dy, torch.zeros_like(dy))
+    dx = torch.where(inside, dx, torch.zeros_like(dx))
+    itarget = codecs.encode(geom, dy, dx)
+    if learning.soft_targets:
+        off = codecs.window_offsets(geom).to(t.device, torch.float32)
+        d2 = (dy[..., None] - off[:, 0]) ** 2 + (dx[..., None] - off[:, 1]) ** 2
+        return itarget, torch.exp(true_div(-d2, learning.st_sigma2))
+    return itarget, itarget
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,21 @@
-"""Version-9 checkpoint loading (load side of ``depth_estimation_tpu.models.io``)
-and the weights bridge from the JAX parameter tree.
+"""Version-9 checkpoints (port of ``depth_estimation_tpu.models.io``) and the
+weights bridges between the JAX parameter tree and the port's modules.
 
-A checkpoint directory holds ``meta.json`` (format version, geometry,
-learning) and ``params.msgpack`` (flax's serialization of the parameter
-tree). The machine that runs the port has neither flax nor msgpack, so
-``unpackb`` below decodes the subset of msgpack that flax writes: maps,
-arrays, strings, binaries, integers, floats, nil/bool, and ext type 1 —
-a packed ndarray ``(shape, dtype name, raw little-endian bytes)``.
+A checkpoint directory, named by ``model_dir_name``, holds ``meta.json``
+(format version, geometry, learning, score history, epoch) and
+``params.msgpack`` (flax's serialization of the parameter tree). The
+machine that runs the port has neither flax nor msgpack, so ``unpackb``
+and ``packb`` below read and write the subset of msgpack that flax
+writes: maps, arrays, strings, binaries, integers, floats, nil/bool, and
+ext type 1 — a packed ndarray ``(shape, dtype name, raw little-endian
+bytes)``. ``packb`` writes the bytes ``flax.serialization.to_bytes``
+writes for the same tree, so a checkpoint the port saves loads in the
+JAX package and the reverse.
+
+Bridges: ``*_state_from_jax`` map a flax tree (numpy leaves) onto a
+module's state dict; ``filter_tree``, ``multiscale_tree`` and
+``model_tree`` map the port's single-scale and multiscale modules back
+onto the flax tree.
 """
 
 from __future__ import annotations
@@ -15,7 +24,7 @@ import dataclasses
 import json
 import os
 import struct
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -115,6 +124,87 @@ def unpackb(payload: bytes) -> Any:
     if r.pos != len(r.buf):
         raise ValueError("trailing bytes after msgpack object")
     return out
+
+
+def _pack(obj: Any, out: bytearray) -> None:
+    if obj is None:
+        out.append(0xc0)
+    elif obj is True or obj is False:
+        out.append(0xc3 if obj else 0xc2)
+    elif isinstance(obj, int):
+        if 0 <= obj < 0x80:
+            out.append(obj)
+        elif -32 <= obj < 0:
+            out.append(obj & 0xff)
+        elif obj >= 0:
+            for code, fmt, top in ((0xcc, ">B", 1 << 8), (0xcd, ">H", 1 << 16),
+                                   (0xce, ">I", 1 << 32), (0xcf, ">Q", 1 << 64)):
+                if obj < top:
+                    out += bytes([code]) + struct.pack(fmt, obj)
+                    return
+            raise ValueError(f"int {obj} too large for msgpack")
+        else:
+            for code, fmt, lo in ((0xd0, ">b", -(1 << 7)), (0xd1, ">h", -(1 << 15)),
+                                  (0xd2, ">i", -(1 << 31)), (0xd3, ">q", -(1 << 63))):
+                if obj >= lo:
+                    out += bytes([code]) + struct.pack(fmt, obj)
+                    return
+            raise ValueError(f"int {obj} too small for msgpack")
+    elif isinstance(obj, float):
+        out += b"\xcb" + struct.pack(">d", obj)
+    elif isinstance(obj, str):
+        _pack_sized(out, obj.encode("utf-8"), 0xa0, 32, (0xd9, 0xda, 0xdb))
+    elif isinstance(obj, (bytes, bytearray)):
+        _pack_sized(out, bytes(obj), None, 0, (0xc4, 0xc5, 0xc6))
+    elif isinstance(obj, (list, tuple)):
+        _pack_header(out, len(obj), 0x90, 16, (None, 0xdc, 0xdd))
+        for v in obj:
+            _pack(v, out)
+    elif isinstance(obj, dict):
+        _pack_header(out, len(obj), 0x80, 16, (None, 0xde, 0xdf))
+        for k, v in obj.items():
+            _pack(k, out)
+            _pack(v, out)
+    elif isinstance(obj, np.ndarray):
+        if obj.dtype.hasobject:
+            raise ValueError("object arrays do not serialize")
+        data = packb((obj.shape, obj.dtype.name, obj.tobytes("C")))
+        fixed = {1: 0xd4, 2: 0xd5, 4: 0xd6, 8: 0xd7, 16: 0xd8}
+        if len(data) in fixed:
+            out.append(fixed[len(data)])
+        else:
+            _pack_header(out, len(data), None, 0, (0xc7, 0xc8, 0xc9))
+        out += struct.pack(">b", _EXT_NDARRAY) + data
+    else:
+        raise TypeError(f"cannot serialize {type(obj).__name__}")
+
+
+def _pack_header(out: bytearray, n: int, fix, fix_limit: int, codes) -> None:
+    """A length header: the fix form below fix_limit, else the 8/16/32-bit
+    forms of ``codes`` (None where msgpack has no such form)."""
+    if fix is not None and n < fix_limit:
+        out.append(fix | n)
+        return
+    for code, fmt, top in zip(codes, (">B", ">H", ">I"),
+                              (1 << 8, 1 << 16, 1 << 32)):
+        if code is not None and n < top:
+            out += bytes([code]) + struct.pack(fmt, n)
+            return
+    raise ValueError(f"msgpack length {n} too large")
+
+
+def _pack_sized(out: bytearray, data: bytes, fix, fix_limit: int, codes) -> None:
+    _pack_header(out, len(data), fix, fix_limit, codes)
+    out += data
+
+
+def packb(obj: Any) -> bytes:
+    """Encode one object as msgpack the way flax.serialization writes a
+    state dict: maps in insertion order, Python floats as doubles, bytes as
+    bin, numpy arrays as ext 1."""
+    out = bytearray()
+    _pack(obj, out)
+    return bytes(out)
 
 
 # ---------------------------------------------------------------------------
@@ -218,6 +308,153 @@ def legacy_state_from_jax(tree: Dict) -> Dict[str, torch.Tensor]:
     state["classifier.bias"] = torch.from_numpy(
         np.array(dense["bias"], np.float32))
     return state
+
+
+# ---------------------------------------------------------------------------
+# Weights bridge: the port's modules -> JAX/flax parameter trees
+# ---------------------------------------------------------------------------
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return np.ascontiguousarray(t.detach().cpu().numpy(), np.float32)
+
+
+def filter_tree(geometry: Geometry, state: Dict[str, torch.Tensor]) -> Dict:
+    """A ``ConvFilter`` state dict as the flax ConvFilter tree
+    ``{"params": {"layerN": {"kernel", "bias"}}}`` of numpy arrays: dense
+    weights (cout, cin, kh, kw) -> kernels (kh, kw, cin, cout), sparse
+    kernels as they are. The inverse of ``filter_state_from_jax``."""
+    params = {}
+    for i in range(len(geometry.layers)):
+        name = f"layer{i + 1}"
+        if f"{name}.kernel" in state:
+            kernel = _np(state[f"{name}.kernel"])
+        else:
+            kernel = _np(state[f"{name}.weight"].permute(2, 3, 1, 0))
+        params[name] = {"kernel": kernel, "bias": _np(state[f"{name}.bias"])}
+    return {"params": params}
+
+
+def multiscale_tree(geometry: Geometry, state: Dict[str, torch.Tensor]) -> Dict:
+    """A ``MultiscaleFlowModel`` state dict as the flax multiscale tree:
+    the shared trunk's ``{"params": ...}`` or ``{"scales": {"scale{s}":
+    {"params": ...}}}``, then ``{"cascade": {"betas"}}`` with trainable
+    cascade weights. The inverse of ``multiscale_state_from_jax``."""
+    def trunk(s):
+        p = f"filters.{s}."
+        return filter_tree(geometry, {k[len(p):]: v for k, v in state.items()
+                                      if k.startswith(p)})
+    if geometry.share_filters:
+        tree = trunk(0)
+    else:
+        tree = {"scales": {f"scale{s}": trunk(s)
+                           for s in range(len(geometry.ratios))}}
+    if geometry.cascad_trainable_weights:
+        tree["cascade"] = {"betas": _np(state["betas"])}
+    return tree
+
+
+def model_tree(model) -> Dict:
+    """The flax tree of a ``FlowModel``, ``MultiscaleFlowModel`` or
+    ``ConvFilter`` (numpy leaves)."""
+    from .filters import ConvFilter
+    from .flow import FlowModel
+    from .multiscale import MultiscaleFlowModel
+    if isinstance(model, MultiscaleFlowModel):
+        return multiscale_tree(model.geometry, model.state_dict())
+    if isinstance(model, FlowModel):
+        model = model.filter
+    if isinstance(model, ConvFilter):
+        return filter_tree(model.geometry, model.state_dict())
+    raise TypeError(f"no flax tree for {type(model).__name__}")
+
+
+def load_tree_into(model, tree: Dict):
+    """Load a flax tree (numpy leaves) into a ``FlowModel``,
+    ``MultiscaleFlowModel`` or ``ConvFilter``. Returns the module."""
+    from .filters import ConvFilter
+    from .flow import FlowModel
+    from .multiscale import MultiscaleFlowModel
+    if isinstance(model, MultiscaleFlowModel):
+        model.load_state_dict(multiscale_state_from_jax(model.geometry, tree))
+    elif isinstance(model, (FlowModel, ConvFilter)):
+        trunk = model.filter if isinstance(model, FlowModel) else model
+        trunk.load_state_dict(filter_state_from_jax(trunk.geometry, tree))
+    else:
+        raise TypeError(f"cannot load a flax tree into {type(model).__name__}")
+    return model
+
+
+# ---------------------------------------------------------------------------
+# Checkpoint directories
+# ---------------------------------------------------------------------------
+
+def model_dir_name(geom: Geometry, learning: Learning) -> str:
+    """Hyperparameter-encoded directory name."""
+    layers = "-".join("_".join(map(str, l)) for l in geom.layers)
+    parts = [
+        f"model={layers}",
+        f"win={geom.maxh}x{geom.maxw}",
+        f"img={geom.hImg}x{geom.wImg}",
+        f"ms={'-'.join(map(str, geom.ratios)) if geom.multiscale else 'no'}"
+        + ("" if not geom.multiscale or geom.share_filters else ",sf=0"),
+        f"head={geom.output_extraction_method}",
+        f"crit={learning.criterion}",
+        f"lr={learning.rate}",
+        f"lrd={learning.rate_decay}",
+        f"wd={learning.weight_decay}",
+    ]
+    return ",".join(parts)
+
+
+def save_model(path: str, geom: Geometry, learning: Learning, params: Any,
+               score_history: Optional[list] = None, epoch: int = 0) -> str:
+    """Write <path>/{meta.json, params.msgpack}; ``params`` is a model
+    (``model_tree``) or a flax tree of numpy arrays. Returns path."""
+    if isinstance(params, torch.nn.Module):
+        params = model_tree(params)
+    os.makedirs(path, exist_ok=True)
+    meta = {
+        "version": FORMAT_VERSION,
+        "geometry": dataclasses.asdict(geom),
+        "learning": dataclasses.asdict(learning),
+        "score": score_history or [],
+        "epoch": epoch,
+    }
+    with open(os.path.join(path, "meta.json"), "w") as f:
+        json.dump(meta, f, indent=1)
+    with open(os.path.join(path, "params.msgpack"), "wb") as f:
+        f.write(packb(params))
+    return path
+
+
+def _restore(template: Any, tree: Any, where: str = "") -> Any:
+    """``tree`` in the structure of ``template`` (dicts with the same keys,
+    arrays of the same shapes), as flax's from_bytes restores it."""
+    if isinstance(template, dict):
+        if not isinstance(tree, dict) or set(tree) != set(template):
+            raise ValueError(f"checkpoint tree at {where or '/'} has keys "
+                             f"{sorted(tree) if isinstance(tree, dict) else tree!r}, "
+                             f"expected {sorted(template)}")
+        return {k: _restore(template[k], tree[k], f"{where}/{k}")
+                for k in template}
+    arr = np.asarray(tree)
+    if arr.shape != np.shape(template):
+        raise ValueError(f"{where}: shape {arr.shape}, expected "
+                         f"{np.shape(template)}")
+    return arr
+
+
+def load_weights_into(path: str, template: Any) -> Any:
+    """Finetune path: the checkpoint's weights into ``template``: a module
+    (``FlowModel``, ``MultiscaleFlowModel``, ``ConvFilter``; loaded in
+    place and returned) or a flax tree (a tree of the same structure is
+    returned)."""
+    with open(os.path.join(path, "params.msgpack"), "rb") as f:
+        tree = unpackb(f.read())
+    if isinstance(template, torch.nn.Module):
+        _restore(model_tree(template), tree)
+        return load_tree_into(template, tree)
+    return _restore(template, tree)
 
 
 def load_model(path: str) -> Tuple[Geometry, Learning, Dict, dict]:

@@ -7,6 +7,7 @@ on the CPU in its place.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -25,6 +26,13 @@ def true_div(t: torch.Tensor, c: float) -> torch.Tensor:
     """t / c as a true division on every device (a CUDA ``tensor / scalar``
     multiplies by the reciprocal of the scalar)."""
     return t / torch.tensor(float(c), dtype=t.dtype, device=t.device)
+
+
+def host(x) -> np.ndarray:
+    """A tensor (on any device) or an array-like as a numpy array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
 
 
 def as_f32(x, device) -> torch.Tensor:

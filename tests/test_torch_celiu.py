@@ -88,7 +88,9 @@ HELPERS = {
     "get_dxs": lambda m, a: m.get_dxs(a(IMG), a(IMG2)),
     "neighbor_weights": lambda m, a: m._neighbor_weights(a(VX)),
     "nsum": lambda m, a: m._nsum(a(VY), *m._neighbor_weights(a(VX))),
-    "gaussian_mixture_init": lambda m, a: m.gaussian_mixture_init(5),
+    "gaussian_mixture_init": lambda m, a: (
+        m.gaussian_mixture_init(5) if m is jc
+        else m.gaussian_mixture_init(5, "cpu")),
 }
 
 

@@ -16,8 +16,10 @@ at strips cut unevenly, at images shorter than a cluster, at images whose
 planes (240x320) or flows (480x640, 1000x1000) exceed the cluster's
 shared memory, and on stale memory from the allocator, with its barrier
 probe in every mode; B1's two pixels a thread at widths that cut a
-thread's pair and at images smaller than one tile. Every test skips
-without a CUDA card. This file imports no jax, so it also runs where
+thread's pair and at images smaller than one tile. The training slice
+has no kernel of its own: its trainers (3 criteria, and the multiscale
+trainer) are held card vs CPU, and the 'liu' GT of a pair loader is held
+to launch B4. Every test skips without a CUDA card. This file imports no jax, so it also runs where
 jax is absent:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -526,3 +528,108 @@ def test_match_throughput_kernel_rejects_what_it_does_not_take(dev):
     bad = matching.MatchPlan(2, 2, 16, 16, 0, 2, 2)
     with pytest.raises(RuntimeError, match="unsupported configuration"):
         mexp._match_flow_throughput_cuda(f1, f2, 4, 4, bad)
+
+
+# ---------------------------------------------------------------------------
+# the training slice on the card (no kernel of its own: the trainer runs
+# plain torch with autograd; the loaders reach B4 through the liu GT)
+# ---------------------------------------------------------------------------
+
+_TRAIN_GEOM = dict(hImg=48, wImg=56, layers=((3, 5, 5, 8), (8, 3, 3, 6)),
+                   maxh=6, maxw=6, maxhGT=6, maxwGT=6, hKernelGT=5,
+                   wKernelGT=5)
+
+
+def _patch_set(g, n, seed):
+    from depth_estimation_tpu_torch.geometry import Learning
+    from depth_estimation_tpu_torch.training import train
+    rng = np.random.RandomState(seed)
+    base = rng.rand(g.hImg + 20, g.wImg + 20, 3).astype(np.float32)
+    images = [base[10:10 + g.hImg, 10:10 + g.wImg],
+              base[11:11 + g.hImg, 8:8 + g.wImg]]
+    flow = np.zeros((2, g.hImg, g.wImg), np.float32)
+    flow[0], flow[1] = 1, -2
+    return train.sample_patches(g, Learning(), images, [flow], None, n,
+                                np.random.RandomState(seed + 1))
+
+
+def tree_leaves(tree):
+    """The leaves of a nested dict, in its order."""
+    if isinstance(tree, dict):
+        return [x for k in tree for x in tree_leaves(tree[k])]
+    return [tree]
+
+
+@pytest.mark.parametrize("criterion", ["nll", "soft", "mse"])
+def test_trainer_card_matches_cpu(dev, criterion):
+    """Three SGD steps from the same weights on the same batches, TF32 off:
+    parameters within 1e-5 of the CPU's."""
+    from depth_estimation_tpu_torch.geometry import Geometry, Learning
+    from depth_estimation_tpu_torch.models import io as mio
+    from depth_estimation_tpu_torch.training import train
+    g = Geometry(**_TRAIN_GEOM)
+    lrn = Learning(rate=2e-2, rate_decay=1e-5, criterion=criterion,
+                   soft_targets=criterion == "soft", batch_size=16)
+    ds = _patch_set(g, 48, 0)
+    card = train.Trainer(g, lrn, device=dev).init(
+        torch.Generator().manual_seed(0))
+    cpu = train.Trainer(g, lrn, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    mc = card.epoch(ds, shuffle_rng=np.random.RandomState(1))
+    mh = cpu.epoch(ds, shuffle_rng=np.random.RandomState(1))
+    assert all(mc["grad_ok"]) and next(card.model.parameters()).is_cuda
+    np.testing.assert_allclose(mc["losses"], mh["losses"], rtol=1e-5)
+    for a, b in zip(tree_leaves(mio.model_tree(card.model)),
+                    tree_leaves(mio.model_tree(cpu.model))):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)
+
+
+def test_multiscale_trainer_card_matches_cpu(dev):
+    from depth_estimation_tpu_torch.geometry import Geometry, Learning
+    from depth_estimation_tpu_torch.models import io as mio
+    from depth_estimation_tpu_torch.training import train
+    g = Geometry(hImg=48, wImg=56, layers=((3, 3, 3, 6),), maxh=4, maxw=4,
+                 maxhGT=6, maxwGT=6, hKernelGT=5, wKernelGT=5,
+                 multiscale=True, ratios=(1, 2))
+    lrn = Learning(rate=5e-2, rate_decay=1e-5, batch_size=8)
+    rng = np.random.RandomState(3)
+    base = rng.rand(g.hImg + 20, g.wImg + 20, 3).astype(np.float32)
+    images = [base[10:10 + g.hImg, 10:10 + g.wImg],
+              base[11:11 + g.hImg, 8:8 + g.wImg]]
+    flow = np.zeros((2, g.hImg, g.wImg), np.float32)
+    flow[0], flow[1] = 1, -2
+    ds = train.sample_foveas(g, lrn, images, [flow], None, 16,
+                             np.random.RandomState(4))
+    card = train.MultiscaleTrainer(g, lrn, device=dev).init(
+        torch.Generator().manual_seed(0))
+    cpu = train.MultiscaleTrainer(g, lrn, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    mc = card.epoch(ds, shuffle_rng=np.random.RandomState(5))
+    mh = cpu.epoch(ds, shuffle_rng=np.random.RandomState(5))
+    assert all(mc["grad_ok"])
+    np.testing.assert_allclose(mc["losses"], mh["losses"], rtol=1e-5)
+    for a, b in zip(tree_leaves(mio.model_tree(card.model)),
+                    tree_leaves(mio.model_tree(cpu.model))):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)
+
+
+def test_liu_ground_truth_of_a_pair_launches_b4(dev):
+    """The 'liu' GT of the pair loader runs its SOR sweeps through B4."""
+    import dataclasses
+    from depth_estimation_tpu_torch.data import datasets
+    from depth_estimation_tpu_torch.flow import sor_kernel
+    from depth_estimation_tpu_torch.geometry import Geometry
+    from depth_estimation_tpu_torch.geometry3d import calibration
+    g = Geometry(**dict(_TRAIN_GEOM, hImg=48, wImg=64))
+    cal = dataclasses.replace(calibration.RECTIFIED_GOPRO_SMALL, wImg=128,
+                              hImg=96, fx=100.0, fy=100.0, cx=64, cy=48,
+                              bad_image_threshold=0.0)
+    rng = np.random.RandomState(0)
+    base = rng.rand(24, 32, 3).astype(np.float32).repeat(4, 0).repeat(4, 1)
+    prev, img = base, np.roll(base, 2, axis=1)
+    n0 = sor_kernel.sor_redblack.launches
+    pair = datasets.load_rectified_pair(g, cal, prev, img, groundtruth="liu",
+                                        device=dev)
+    assert sor_kernel.sor_redblack.launches > n0
+    assert pair.good and pair.flow.shape == (2, 48, 64)
+    assert np.isfinite(pair.flow).all()
