@@ -72,7 +72,19 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      ``BatchedDepthEstimator`` step on the saved checkpoint (B1); then the
      step times (TF32 off, and a Trainer step with cuDNN's TF32 on), each
      step's kernels and device time (torch.profiler), and the loader's
-     time for 4 pairs.
+     time for 4 pairs;
+ 12. the other families' trainers at full width, every kernel count zeroed
+     before and read after (the path reaches none of B1-B5): the radial
+     trainer ('gopro' 1280x720 PNG frames of a forward step towards two
+     depth planes -> ``load_polar_pairs_batched`` with the 16x16 GT at
+     720x1280 -> 200x200 polar patches, hWin 15 -> one epoch, n 1000,
+     B=32 -> e0.msgpack -> the net loaded back); version2 (340x180 PNG
+     frames -> ``FlowDataset`` -> one epoch -> e0 -> loaded back); the
+     legacy depth classifier (360x640 pairs and sparse depth points -> one
+     epoch, n 2000 / m 500 -> params.msgpack -> loaded back -> the class
+     map of one pair); card vs CPU: the radial loader at 'gopro' scaled by
+     0.5, version2's pairs, the class map, and 3 steps of each trainer;
+     each step's time, kernels and device time, and each loader's time.
 
 The build's registers and spills are printed for every kernel.
 
@@ -85,7 +97,8 @@ largest error at the C24 shapes; B3 in f32 with grid_sample's time as
 library_ms, both also 10 calls back to back, and its bf16 times and
 bound; B4 also with its dependency
 floor and its device time over a solve; B1 and B4 also their launches
-on the training phase), the card, and {"ok": true,
+on the training phase; each its launches on the families' phase), the
+card, and {"ok": true,
 "device": {...}}. A longer report goes to
 chiprun_out/chip_smoke_report.json.
 """
@@ -188,6 +201,30 @@ MS_B, MS_STEPS = 32, 8
 TOL_TRAIN_PARAM = 1e-5
 TOL_TRAIN_LOSS_REL = 1e-5
 TOL_TRAIN_GT = 0.99
+# the other families' trainers at full width (ROADMAP A.12): the radial
+# trainer at train_radial.py's defaults and BASELINE config4 ('gopro'
+# 1280x720 frames, 200x200 polar, hWin 15, the GT's 16x16 window and kernel
+# at 720x1280, max_flow 14, n 1000, B=32, lr 1e-2, decay 1e-5), version2 at
+# train_v2.py's ('rectified_gopro_small' 340x180, 17x17x32 trunk, 17x17
+# window, normalization 17, n 1000, B=32, lr 1e-2) and the legacy depth
+# classifier at depth_estimation.py's (360x640, 2 classes, 32x32 patches,
+# n 2000, m 500, B=32), each one epoch on frames made from a seed. The
+# radial loader is compared card vs CPU at 'gopro' scaled by 0.5: its
+# exhaustive GT at 720x1280 (256 displacement planes) would take the CPU
+# about a minute. Card vs CPU: the radial epipole is one 8-point fit of
+# few-pixel flows (RANSAC's threshold takes every match, C26), so the
+# tracks' 1e-6 rounding moves it by pixels and the whole loader is
+# printed, not held; R is held within TOL_R where both devices pick the
+# same winner of 8 distinct points, and the polar warp and the GT
+# projection from the same inputs within TOL_POLAR (intensity) and
+# TOL_POLAR_GT (polar rows; sin and cos round apart by an ulp, times radii
+# up to ~370 px), the GT mask on TOL_E2E_MASK of the pixels. Version2's
+# pairs are held as the flow trainer's; every trainer's weights after 3
+# steps within TOL_TRAIN_PARAM and its losses within TOL_TRAIN_LOSS_REL.
+FAM_FRAMES, FAM_N, FAM_B = 5, 1000, 32
+TOL_POLAR, TOL_POLAR_GT = 1e-3, 1e-3
+RAD_ZOOM = (1.003, 1.008)   # top / bottom plane zoom a frame (flow <= 6 px)
+LEG_H, LEG_W, LEG_N, LEG_M, LEG_CLASSES = 360, 640, 2000, 500, 2
 # B4's dependency floor: the no-arithmetic probe's half-sweeps a timing
 PROBE_HALF_SWEEPS = 400
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, FP32 FLOP/s outside
@@ -1397,29 +1434,36 @@ def forward_sequence(seed, n, h=480, w=640):
     base = images.scale_np(rng.rand(h // 4, w // 4, 3).astype(np.float32), h, w)
     s = 0.02 + 0.02 * images.scale_np(rng.rand(3, 4).astype(np.float32), h, w)
     yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
-    frames = []
-    for k in range(n):
-        f = 1.0 - k * s
-        xs = np.clip(w / 2 + (xx - w / 2) * f, 0, w - 1)
-        ys = np.clip(h / 2 + (yy - h / 2) * f, 0, h - 1)
-        x0, y0 = np.floor(xs).astype(int), np.floor(ys).astype(int)
-        x1, y1 = np.minimum(x0 + 1, w - 1), np.minimum(y0 + 1, h - 1)
-        fx, fy = (xs - x0)[..., None], (ys - y0)[..., None]
-        img = ((1 - fy) * ((1 - fx) * base[y0, x0] + fx * base[y0, x1])
-               + fy * ((1 - fx) * base[y1, x0] + fx * base[y1, x1]))
-        frames.append((np.clip(img, 0, 1) * 255).astype(np.uint8))
-    return frames
+    return [sample_u8(base, w / 2 + (xx - w / 2) * (1.0 - k * s),
+                      h / 2 + (yy - h / 2) * (1.0 - k * s))
+            for k in range(n)]
 
 
-def loader_trace(frames, cal, noise, dev):
-    """The 'sfm' loader's ego-motion on ``dev``: per pair, RANSAC's winning
-    sample's number of distinct points, and R."""
+def sample_u8(base, xs, ys):
+    """base (H, W, 3) in [0, 1] sampled bilinearly at (ys, xs), clamped to
+    the frame, as uint8."""
+    h, w = base.shape[:2]
+    xs, ys = np.clip(xs, 0, w - 1), np.clip(ys, 0, h - 1)
+    x0, y0 = np.floor(xs).astype(int), np.floor(ys).astype(int)
+    x1, y1 = np.minimum(x0 + 1, w - 1), np.minimum(y0 + 1, h - 1)
+    fx, fy = (xs - x0)[..., None], (ys - y0)[..., None]
+    img = ((1 - fy) * ((1 - fx) * base[y0, x0] + fx * base[y0, x1])
+           + fy * ((1 - fx) * base[y1, x0] + fx * base[y1, x1]))
+    return (np.clip(img, 0, 1) * 255).astype(np.uint8)
+
+
+def loader_trace(frames, cal, noise, dev, undistort=True):
+    """The 'sfm' loader's ego-motion on ``dev`` (the polar loader's with
+    ``undistort=False``): per pair, RANSAC's winning sample's number of
+    distinct points, R, and the winning sample's indices."""
     from depth_estimation_tpu_torch.geometry3d import egomotion as ego
     from depth_estimation_tpu_torch.geometry3d import undistort as undist
     prevs = torch.as_tensor(np.stack(frames[:-1]), dtype=torch.float32, device=dev)
     imgs = torch.as_tensor(np.stack(frames[1:]), dtype=torch.float32, device=dev)
-    u1 = undist.undistort_image(prevs, cal.K, cal.distortion)
-    u2 = undist.undistort_image(imgs, cal.K, cal.distortion)
+    u1, u2 = prevs, imgs
+    if undistort:
+        u1 = undist.undistort_image(prevs, cal.K, cal.distortion)
+        u2 = undist.undistort_image(imgs, cal.K, cal.distortion)
     pts, pvalid = ego.good_features_to_track_batched(
         u1, cal.sfm.max_points, cal.sfm.points_quality)
     pts2, status = ego.track_lk_batched(u1, u2, pts)
@@ -1428,7 +1472,8 @@ def loader_trace(frames, cal, noise, dev):
     idx, _, inls = ego.ransac_hypotheses(pts, pts2, valid, cal.K, noise)
     winners = idx[torch.arange(idx.shape[0]), inls.argmax(-1)]
     em = ego.get_ego_motion_from_matches_batched(pts, pts2, valid, cal.K, noise)
-    return [len(set(w.tolist())) for w in winners], em.R.cpu()
+    return ([len(set(w.tolist())) for w in winners], em.R.cpu(),
+            [tuple(w.tolist()) for w in winners])
 
 
 def interleave(raw):
@@ -1452,7 +1497,7 @@ def trainer_pair(cls, geom, lrn, seed, dev):
 
 def max_param_diff(a, b):
     sa, sb = a.state_dict(), b.state_dict()
-    return max((sa[k].cpu() - sb[k]).abs().max().item() for k in sa)
+    return max((sa[k].cpu() - sb[k].cpu()).abs().max().item() for k in sa)
 
 
 def device_profile(fn):
@@ -1501,10 +1546,8 @@ def phase_training(dev, card, report):
     out = {}
     tmp = tempfile.TemporaryDirectory()
     root = tmp.name
-    os.makedirs(os.path.join(root, "images"))
     frames_u8 = forward_sequence(21, TRAIN_FRAMES, cal.hImg, cal.wImg)
-    for i, f in enumerate(frames_u8):
-        write_png(os.path.join(root, "images", f"{i:09d}.png"), f)
+    write_frames(root, frames_u8)
     noise = ego.gumbel_noise(64, cal.sfm.max_points, "cpu")
 
     # 1. the loader on the card
@@ -1529,8 +1572,8 @@ def phase_training(dev, card, report):
     check(sum(good) >= n_pairs // 2, f"loader: good on {good}")
 
     # 2. card vs CPU, the same frames and RANSAC noise
-    distinct, r_card = loader_trace(frames, cal, noise, dev)
-    _, r_cpu = loader_trace(frames, cal, noise, "cpu")
+    distinct, r_card, _ = loader_trace(frames, cal, noise, dev)
+    _, r_cpu, _ = loader_trace(frames, cal, noise, "cpu")
     rows = []
     for k in range(n_pairs):
         a, b = pairs[dev][k], pairs["cpu"][k]
@@ -1732,6 +1775,413 @@ def phase_training(dev, card, report):
     return counts
 
 
+def zoom_sequence(seed, n, h, w, s_top, s_bottom):
+    """n uint8 frames of a camera stepping forward towards two depth planes
+    (the top half zooms by s_top a step about the centre, the bottom half
+    by s_bottom; one plane alone leaves E undetermined, C5), made with
+    numpy: frame k samples a smooth random texture at c + (p - c) / s^k, as
+    tests/test_cli.py builds its radial scene."""
+    from depth_estimation_tpu_torch.data import images
+    rng = np.random.RandomState(seed)
+    base = images.scale_np(rng.rand(h // 4, w // 4, 3).astype(np.float32), h, w)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    s = np.where(yy < h / 2, s_top, s_bottom)
+    return [sample_u8(base, w / 2 + (xx - w / 2) / s ** k,
+                      h / 2 + (yy - h / 2) / s ** k) for k in range(n)]
+
+
+def write_frames(root, frames):
+    os.makedirs(os.path.join(root, "images"))
+    for i, f in enumerate(frames):
+        write_png(os.path.join(root, "images", f"{i:09d}.png"), f)
+
+
+def nll_card_vs_cpu(card_trainer, cpu_trainer, corpus, seed):
+    """3 steps from the same weights on the same batches, on the card and
+    on the CPU: the largest relative loss difference and weight
+    difference."""
+    cpu_trainer.model.load_state_dict(card_trainer.model.state_dict())
+    small = tuple(a[:3 * FAM_B] for a in corpus)
+    a = card_trainer.epoch(small, np.random.RandomState(seed))
+    b = cpu_trainer.epoch(small, np.random.RandomState(seed))
+    rel = max(abs(x - y) / abs(y) for x, y in zip(a["losses"], b["losses"]))
+    return rel, max_param_diff(card_trainer.model, cpu_trainer.model)
+
+
+def step_timing(name, fn, card, out):
+    """A step's time (CUDA events, median of 5 after 2 warm-ups) and its
+    kernels and device time (torch.profiler)."""
+    out[f"{name}_step_ms"] = cuda_ms(fn, reps=5, warmup=2)
+    n, busy = device_profile(fn)
+    out[f"{name}_step_kernels"], out[f"{name}_step_device_ms"] = n, busy
+    print(f"[{card}] families {name} step: {out[f'{name}_step_ms']:.3f} ms, "
+          f"{out[f'{name}_step_kernels']} kernels, "
+          f"{out[f'{name}_step_device_ms']:.3f} ms of device time",
+          flush=True)
+
+
+def family_radial(dev, card, root):
+    """The radial trainer: PNG frames -> polar pairs with the projected GT
+    -> patches -> one epoch -> e0.msgpack -> the net loaded back, flow on
+    one pair; the loader card vs CPU at half size; 3 steps card vs CPU."""
+    from depth_estimation_tpu_torch.data import datasets, images
+    from depth_estimation_tpu_torch.data import groundtruth as gt_mod
+    from depth_estimation_tpu_torch.geometry3d import egomotion as ego
+    from depth_estimation_tpu_torch.geometry3d import polar
+    from depth_estimation_tpu_torch.geometry3d.calibration import GOPRO
+    from depth_estimation_tpu_torch.models import io as mio
+    from depth_estimation_tpu_torch.models.radial import RadialFlowNetwork
+    from depth_estimation_tpu_torch.training import families
+    out = {}
+    cal = GOPRO
+    frames_u8 = zoom_sequence(31, FAM_FRAMES, cal.hImg, cal.wImg, *RAD_ZOOM)
+    seq = os.path.join(root, "radial")
+    write_frames(seq, frames_u8)
+    frames = families.read_frames(seq, cal.hImg, cal.wImg, FAM_FRAMES)
+    noise = ego.gumbel_noise(64, cal.sfm.max_points, "cpu")
+    tr = families.RadialTrainer(C4_LAYERS, C4_HWIN, 1e-2, 1e-5, FAM_B,
+                                device=dev).init(
+        torch.Generator().manual_seed(60))
+    torch.cuda.reset_peak_memory_stats()
+    pairs = tr.load_pairs(cal, frames, C4_H, C4_W, noise=noise)
+    torch.cuda.synchronize()
+    out["loader_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["loader_ms"] = cuda_ms(
+        lambda: tr.load_pairs(cal, frames, C4_H, C4_W, noise=noise),
+        reps=3, warmup=0)
+    e2s = [p.e2.round(1).tolist() for p in pairs]
+    print(f"families radial: loader {FAM_FRAMES} PNG frames {cal.hImg}x"
+          f"{cal.wImg} -> {len(pairs)} good polar pairs {C4_H}x{C4_W}, "
+          f"epipoles {e2s}, GT valid share "
+          f"{[round(float(p.polar_gt_mask.mean()), 4) for p in pairs]}; "
+          f"{out['loader_ms']:.1f} ms, peak {out['loader_peak_gb']:.2f} GB "
+          f"on the card", flush=True)
+    check(len(pairs) >= (FAM_FRAMES - 1) // 2, f"radial: {len(pairs)} pairs")
+
+    rng = np.random.RandomState(0)
+    corpus = tr.sample(pairs, FAM_N, rng)
+    hist = tr.fit(corpus, 1, rng, os.path.join(root, "models_radial"))
+    losses = hist[0]["losses"]
+    out.update(n_patches=len(corpus[2]), losses=losses, acc=hist[0]["acc"],
+               target_histogram=np.bincount(corpus[2], minlength=C4_HWIN)
+               .tolist())
+    print(f"families radial: {len(corpus[2])} patches {tr.patch_shape}, "
+          f"targets {out['target_histogram']}; one epoch of {len(losses)} "
+          f"steps, losses {[round(x, 4) for x in losses]}, acc "
+          f"{hist[0]['acc']:.4f}", flush=True)
+    check(len(losses) == len(corpus[2]) // FAM_B and np.isfinite(losses).all(),
+          "radial epoch")
+    net = RadialFlowNetwork(C4_LAYERS, C4_HWIN, device=dev)
+    mio.load_weights_into(os.path.join(root, "models_radial", "e0.msgpack"),
+                          net)
+    check(max_param_diff(net, tr.model) == 0, "radial checkpoint round trip")
+    fl, mc = net.flow(torch.as_tensor(pairs[0].polar_prev_image, device=dev),
+                      torch.as_tensor(pairs[0].polar_image, device=dev))
+    check(bool(torch.isfinite(mc).all()), "radial flow on the checkpoint")
+
+    # card vs CPU at half size: the whole loader, printed (the epipole of
+    # these few-pixel flows is one 8-point fit, so 1e-6 in the tracks moves
+    # it by pixels, C26); RANSAC's winner and R, held where both devices
+    # pick the same 8 distinct points; and the polar grid, warp and GT
+    # projection from the same inputs, held
+    half = cal.scaled(0.5)
+    hf = [images.scale_np(f, half.hImg, half.wImg) for f in frames]
+    gg = families.radial_gt_geometry(half)
+    wk = tr.model.w_kernel
+    got = {d: datasets.load_polar_pairs_batched(
+        half, hf, half.hImg, half.wImg, C4_H, C4_W, wk, geom_gt=gg,
+        max_flow=C4_HWIN - 1, noise=noise, device=d) for d in (dev, "cpu")}
+    distinct, r_card, w_card = loader_trace(hf, half, noise, dev,
+                                            undistort=False)
+    _, r_cpu, w_cpu = loader_trace(hf, half, noise, "cpu", undistort=False)
+    rows = []
+    for k, (a, b) in enumerate(zip(got[dev], got["cpu"])):
+        row = dict(good=[a.good, b.good], distinct=distinct[k],
+                   same_winner=w_card[k] == w_cpu[k],
+                   R_max_diff=(r_card[k] - r_cpu[k]).abs().max().item(),
+                   e2=[a.e2.tolist(), b.e2.tolist()])
+        if a.good and b.good:
+            d = np.abs(np.stack([a.polar_image, a.polar_prev_image])
+                       - np.stack([b.polar_image, b.polar_prev_image]))
+            row.update(polar_mean=float(d.mean()), polar_max=float(d.max()),
+                       mask_agreement=float((a.polar_mask == b.polar_mask)
+                                            .mean()))
+        rows.append(row)
+        print(f"families radial: loader card vs CPU at {half.hImg}x"
+              f"{half.wImg}, pair {k}: {row}", flush=True)
+    out["loader_card_vs_cpu"] = rows
+    prevs = torch.as_tensor(np.stack(hf[:-1]), device=dev)
+    nxt = torch.as_tensor(np.stack(hf[1:]), device=dev)
+    _, _, _, e2s, _, _, prev_w, img_s, masks = datasets.polar_batch(
+        prevs, nxt, half.K, half.wImg, half.hImg, half.hImg, half.wImg, C4_H,
+        C4_W, wk, half.sfm.max_points, half.sfm.points_quality,
+        noise.to(dev))
+    flows = gt_mod.exhaustive_flow_batched(gg, prev_w, img_s, chunk=2,
+                                           device=dev)
+    same = {}
+    for d in (dev, "cpu"):
+        f = [torch.as_tensor(x, device=d) for x in flows]
+        e = e2s.to(d)
+        rmax = polar.get_rmax_batched(half.hImg, half.wImg, e)
+        grid = polar.get_c2p_grid_batched(
+            half.wImg, half.hImg, C4_W, C4_H, e[:, 0], e[:, 1], rmax,
+            lpadding=(wk - 1) // 2, rpadding=(wk - 1) - (wk - 1) // 2)
+        same[d] = [x.cpu() for x in (
+            polar.warp_grid_batched(img_s.to(d), grid),
+            *datasets.polar_gt_batch(*f, masks.to(d), e, half.hImg,
+                                     half.wImg, C4_H, C4_W, wk, C4_HWIN - 1))]
+    out["same_inputs"] = dict(
+        polar_max=(same[dev][0] - same["cpu"][0]).abs().max().item(),
+        gt_max=(same[dev][1] - same["cpu"][1]).abs().max().item(),
+        gt_mask_agreement=(same[dev][2] == same["cpu"][2]).float().mean()
+        .item(),
+        gt_valid=same["cpu"][2].mean().item())
+    print(f"families radial: polar warp and GT projection card vs CPU from "
+          f"the same inputs: {out['same_inputs']}", flush=True)
+    cpu = families.RadialTrainer(C4_LAYERS, C4_HWIN, 1e-2, 1e-5, FAM_B,
+                                 device="cpu")
+    cmp = families.RadialTrainer(C4_LAYERS, C4_HWIN, 1e-2, 1e-5, FAM_B,
+                                 device=dev).init(
+        torch.Generator().manual_seed(61))
+    out["loss_rel"], out["param_max_diff"] = nll_card_vs_cpu(cmp, cpu, corpus, 2)
+    print(f"families radial: 3 steps card vs CPU: loss rel diff "
+          f"{out['loss_rel']:.2e}, parameters max diff "
+          f"{out['param_max_diff']:.2e}", flush=True)
+    b = tuple(torch.as_tensor(a[:FAM_B], device=dev) for a in corpus)
+    step_timing("radial", lambda: tr.step(*b), card, out)
+    return out
+
+
+def family_v2(dev, card, root):
+    """The version2 trainer: PNG frames -> FlowDataset pairs with the
+    cross-correlation GT -> patches -> one epoch -> e0 -> the net loaded
+    back, costs of one pair; the pairs card vs CPU; 3 steps card vs CPU."""
+    from depth_estimation_tpu_torch.data import datasets
+    from depth_estimation_tpu_torch.geometry3d import egomotion as ego
+    from depth_estimation_tpu_torch.geometry3d.calibration import (
+        RECTIFIED_GOPRO_SMALL)
+    from depth_estimation_tpu_torch.models import io as mio
+    from depth_estimation_tpu_torch.models.version2 import V2Network, V2Params
+    from depth_estimation_tpu_torch.training import families
+    out = {}
+    cal = RECTIFIED_GOPRO_SMALL
+    datap = V2Params(wImg=cal.wImg, hImg=cal.hImg, normalization_k=17,
+                     layers=((3, 17, 17, 32),), hWin=17, wWin=17)
+    seq = os.path.join(root, "v2")
+    frames_u8 = forward_sequence(32, FAM_FRAMES, cal.hImg, cal.wImg)
+    write_frames(seq, frames_u8)
+    noise = ego.gumbel_noise(64, cal.sfm.max_points, "cpu")
+    tr = families.V2Trainer(datap, 1e-2, FAM_B, device=dev).init(
+        torch.Generator().manual_seed(62))
+    rng = np.random.RandomState(0)
+    t0 = time.perf_counter()
+    corpus = tr.sample(cal, seq, FAM_FRAMES, FAM_N, rng, noise=noise)
+    out["loader_ms"] = (time.perf_counter() - t0) * 1e3
+    print(f"families version2: FlowDataset over {FAM_FRAMES} PNG frames "
+          f"{cal.hImg}x{cal.wImg} ('sfm', cross-correlation GT, 17x17) -> "
+          f"{len(corpus[2])} patches {corpus[0].shape[1:3]} in "
+          f"{out['loader_ms']:.1f} ms (cold, GT written to its disk cache)",
+          flush=True)
+    check(len(corpus[2]) == FAM_N, f"version2: {len(corpus[2])} patches")
+    hist = tr.fit(corpus, 1, rng, os.path.join(root, "models_v2"))
+    losses = hist[0]["losses"]
+    out.update(losses=losses, acc=hist[0]["acc"])
+    print(f"families version2: one epoch of {len(losses)} steps, losses "
+          f"{[round(x, 4) for x in losses]}, acc {hist[0]['acc']:.4f}",
+          flush=True)
+    check(len(losses) == FAM_N // FAM_B and np.isfinite(losses).all(),
+          "version2 epoch")
+    net = V2Network(datap, device=dev)
+    mio.load_weights_into(os.path.join(root, "models_v2", "e0"), net)
+    check(max_param_diff(net, tr.model) == 0, "version2 checkpoint round trip")
+    with torch.no_grad():
+        f0 = torch.as_tensor(frames_u8[0], dtype=torch.float32, device=dev) / 255
+        f1 = torch.as_tensor(frames_u8[1], dtype=torch.float32, device=dev) / 255
+        check(bool(torch.isfinite(net.costs(f0, f1)).all()),
+              "version2 costs on the checkpoint")
+
+    frames = families.read_frames(seq, cal.hImg, cal.wImg, FAM_FRAMES)
+    rows = []
+    for k in range(FAM_FRAMES - 1):
+        a, b = (datasets.load_rectified_pair(tr.model.geometry, cal,
+                                             frames[k], frames[k + 1],
+                                             noise=noise, device=d)
+                for d in (dev, "cpu"))
+        row = dict(good=[a.good, b.good])
+        if a.good and b.good:
+            dd = np.abs(a.prev_warped - b.prev_warped)
+            both = (a.conf > 0) & (b.conf > 0)
+            row.update(warp_mean=float(dd.mean()),
+                       warp_p99=float(np.quantile(dd, 0.99)),
+                       mask_agreement=float((a.mask == b.mask).mean()),
+                       gt_equal=float((a.flow == b.flow).all(0)[both].mean()),
+                       gt_both_confident=float(both.mean()))
+        rows.append(row)
+        print(f"families version2: pair {k} card vs CPU: {row}", flush=True)
+    out["loader_card_vs_cpu"] = rows
+    distinct, _, _ = loader_trace(frames, cal, noise, dev)
+    out["ransac_distinct"] = distinct
+    cpu = families.V2Trainer(datap, 1e-2, FAM_B, device="cpu")
+    cmp = families.V2Trainer(datap, 1e-2, FAM_B, device=dev).init(
+        torch.Generator().manual_seed(63))
+    out["loss_rel"], out["param_max_diff"] = nll_card_vs_cpu(cmp, cpu, corpus, 3)
+    print(f"families version2: 3 steps card vs CPU: loss rel diff "
+          f"{out['loss_rel']:.2e}, parameters max diff "
+          f"{out['param_max_diff']:.2e}", flush=True)
+    b = tuple(torch.as_tensor(a[:FAM_B], device=dev) for a in corpus)
+    step_timing("version2", lambda: tr.step(*b), card, out)
+    return out
+
+
+def legacy_scene(root, seed, n, h, w):
+    """depth_estimation.py's data layout, as tests/test_cli.py makes it at
+    360x640: n + 1 gray frames (the left half textured and near, depth 4;
+    the right half flat and far, depth 40) and n frames of sparse depth
+    points (depths/%09d.npz)."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    stripes = 0.5 + 0.4 * np.sin(2 * np.pi * (xx + yy) / 4.0)
+    os.makedirs(os.path.join(root, "depths"))
+    frames = []
+    for i in range(n + 1):
+        img = np.full((h, w), 0.5, np.float32)
+        img[:, : w // 2] = stripes[:, : w // 2]
+        img += rng.rand(h, w).astype(np.float32) * 0.05
+        frames.append(np.repeat((np.clip(img, 0, 1) * 255).astype(np.uint8)
+                                [..., None], 3, axis=-1))
+        if i < n:
+            xs = rng.randint(0, w, 400).astype(np.float32)
+            ys = rng.randint(0, h, 400).astype(np.float32)
+            depth = np.where(xs < w // 2, 4.0, 40.0).astype(np.float32)
+            np.savez(os.path.join(root, "depths", f"{i:09d}.npz"), x=xs,
+                     y=ys, depth=depth)
+    write_frames(root, frames)
+
+
+def family_legacy(dev, card, root):
+    """The legacy depth classifier: PNG frames and depth points -> gray
+    pairs -> class-balanced patches -> one epoch -> params.msgpack -> the
+    classifier loaded back and the class map of one full pair; the class
+    map and 3 steps card vs CPU."""
+    from depth_estimation_tpu_torch.data import depth_legacy
+    from depth_estimation_tpu_torch.training import families
+    out = {}
+    seq = os.path.join(root, "legacy")
+    legacy_scene(seq, 33, FAM_FRAMES - 1, LEG_H, LEG_W)
+    t0 = time.perf_counter()
+    frames, images = depth_legacy.load_depth_dataset(seq, FAM_FRAMES, 1,
+                                                     LEG_H, LEG_W)
+    tr = families.DepthClassifierTrainer(LEG_CLASSES, FAM_B, device=dev).init(
+        torch.Generator().manual_seed(64))
+    rng = np.random.RandomState(1)
+    sets = tr.make_datasets(frames, images, LEG_N, LEG_M, rng)
+    out["loader_ms"] = (time.perf_counter() - t0) * 1e3
+    print(f"families legacy: {len(frames)} annotated pairs {LEG_H}x{LEG_W} "
+          f"-> {len(sets[1])} / {len(sets[3])} patches, cutDepth "
+          f"{tr.discretizer.cut_depth}, in {out['loader_ms']:.1f} ms (host)",
+          flush=True)
+    m = tr.fit(*sets, 1, rng)[0]
+    out.update(losses=m["losses"], train_acc=m["train_acc"],
+               test_acc=m["test_acc"], confusion=m["confusion"].tolist())
+    print(f"families legacy: one epoch of {len(m['losses'])} steps, losses "
+          f"{[round(x, 4) for x in m['losses']]}, train acc "
+          f"{m['train_acc']:.4f}, test acc {m['test_acc']:.4f}, confusion "
+          f"{out['confusion']}", flush=True)
+    check(len(m["losses"]) == LEG_N // FAM_B and np.isfinite(m["losses"]).all(),
+          "legacy epoch")
+    ckpt = tr.save(os.path.join(root, "legacy_model"))
+    back = families.DepthClassifierTrainer.load(ckpt, device=dev)
+    check(max_param_diff(back.model, tr.model) == 0
+          and back.discretizer == tr.discretizer, "legacy checkpoint round trip")
+    cmap = back.class_map(images[0])
+    back.save_class_map(ckpt, 0, images[0])
+    near_left = float((cmap[:, : cmap.shape[1] // 2] == 0).mean())
+    near_right = float((cmap[:, cmap.shape[1] // 2:] == 0).mean())
+    cpu = families.DepthClassifierTrainer(LEG_CLASSES, FAM_B, device="cpu")
+    cpu.model.load_state_dict(tr.model.state_dict())
+    out["class_map_card_vs_cpu"] = float((cpu.class_map(images[0]) == cmap)
+                                         .mean())
+    out.update(class_map_shape=list(cmap.shape), near_left=near_left,
+               near_right=near_right)
+    print(f"families legacy: class map {cmap.shape} of pair 0: near share "
+          f"left {near_left:.3f}, right {near_right:.3f}; card vs CPU equal "
+          f"on {out['class_map_card_vs_cpu']:.6f}", flush=True)
+
+    cmp = families.DepthClassifierTrainer(LEG_CLASSES, FAM_B, device=dev).init(
+        torch.Generator().manual_seed(65))
+    cpu.model.load_state_dict(cmp.model.state_dict())
+    sub = (sets[0][:3 * FAM_B], sets[1][:3 * FAM_B], sets[2][:FAM_B],
+           sets[3][:FAM_B])
+    a = cmp.epoch(*sub, np.random.RandomState(4))
+    b = cpu.epoch(*sub, np.random.RandomState(4))
+    out["loss_rel"] = max(abs(x - y) / abs(y) for x, y in zip(a["losses"],
+                                                              b["losses"]))
+    out["param_max_diff"] = max_param_diff(cmp.model, cpu.model)
+    print(f"families legacy: 3 steps card vs CPU: loss rel diff "
+          f"{out['loss_rel']:.2e}, parameters max diff "
+          f"{out['param_max_diff']:.2e}", flush=True)
+    xb = torch.as_tensor(sets[0][:FAM_B], device=dev)
+    cb = torch.as_tensor(sets[1][:FAM_B] - 1, device=dev)
+    step_timing("legacy", lambda: tr.step(xb, cb), card, out)
+    return out
+
+
+def phase_families(dev, card, report):
+    """The radial, version2 and legacy depth trainers at full width, each
+    from frames on disk to a checkpoint its inference module loads back
+    (ROADMAP A.12). B1-B5's counts are zeroed before and read after: the
+    path reaches none of them. Returns the counts."""
+    from depth_estimation_tpu_torch.flow import sor_kernel
+    from depth_estimation_tpu_torch.ops import matching, matching_experimental, warp
+    t_phase = time.perf_counter()
+    counters = {"match_fused": matching.match_flow_fused,
+                "warp_banded": warp.banded_bilinear_warp,
+                "match_fast": matching.match_flow_fast,
+                "sor_redblack": sor_kernel.sor_redblack,
+                "match_throughput": matching_experimental.match_flow_throughput}
+    for fn in counters.values():
+        fn.launches = 0
+    tmp = tempfile.TemporaryDirectory()
+    out = {"radial": family_radial(dev, card, tmp.name),
+           "version2": family_v2(dev, card, tmp.name),
+           "legacy": family_legacy(dev, card, tmp.name)}
+    counts = {name: fn.launches for name, fn in counters.items()}
+    out["launches"] = counts
+    tmp.cleanup()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"families: launches on this path {counts}; phase took "
+          f"{out['seconds']:.1f} s", flush=True)
+    report["families"] = out
+
+    # card vs CPU checks, after every reading is printed
+    for k, row in enumerate(out["radial"]["loader_card_vs_cpu"]):
+        check(row["good"][0] == row["good"][1], f"radial pair {k}: good differs")
+        if row["distinct"] == 8 and row["same_winner"]:
+            check(row["R_max_diff"] <= TOL_R, f"radial pair {k}: R {row}")
+    same = out["radial"]["same_inputs"]
+    check(same["polar_max"] <= TOL_POLAR and same["gt_max"] <= TOL_POLAR_GT
+          and same["gt_mask_agreement"] >= TOL_E2E_MASK,
+          f"radial polar warp / GT projection card vs CPU: {same}")
+    v2 = out["version2"]
+    for k, row in enumerate(v2["loader_card_vs_cpu"]):
+        check(row["good"][0] == row["good"][1], f"version2 pair {k}: good")
+        if v2["ransac_distinct"][k] == 8 and all(row["good"]):
+            check(row["warp_mean"] <= TOL_E2E_MEAN_PX
+                  and row["warp_p99"] <= TOL_E2E_P99_PX
+                  and row["mask_agreement"] >= TOL_E2E_MASK
+                  and row["gt_equal"] >= TOL_TRAIN_GT,
+                  f"version2 pair {k}: {row}")
+    for fam in ("radial", "version2", "legacy"):
+        check(out[fam]["loss_rel"] <= TOL_TRAIN_LOSS_REL
+              and out[fam]["param_max_diff"] <= TOL_TRAIN_PARAM,
+              f"{fam} trainer card vs CPU: {out[fam]}")
+    check(out["legacy"]["class_map_card_vs_cpu"] >= TOL_AGREE,
+          f"legacy class map card vs CPU {out['legacy']}")
+    check(not any(counts.values()), f"a kernel ran on the families' path: "
+          f"{counts}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check "
@@ -1775,6 +2225,7 @@ def main() -> int:
     rows, bounds, b4_solve, floors = phase_timing(dev, card, ests, frames,
                                                   gt_frames, report)
     training = phase_training(dev, card, report)
+    family_counts = phase_families(dev, card, report)
 
     def entry(name, fn, src, replaces, row):
         return {"name": fn, "route": "cuda",
@@ -1838,6 +2289,10 @@ def main() -> int:
                       ("match_flow_fused", "match_fused")):
         next(k for k in kernels if k["name"] == name).update(
             launches_training_phase=training[key])
+    # the families' trainers reach none of the kernels
+    for k, key in zip(kernels, ("match_fused", "warp_banded", "match_fast",
+                                "sor_redblack", "match_throughput")):
+        k["launches_families_phase"] = family_counts[key]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} not launched on its path")
     report["kernels"] = kernels

@@ -1,6 +1,5 @@
-"""Frame-sequence datasets for the flow trainer (port of the flow part of
-``depth_estimation_tpu.data.datasets``; the radial/polar pipeline is not
-ported yet).
+"""Frame-sequence datasets for the trainers (port of
+``depth_estimation_tpu.data.datasets``).
 
   * ``load_rectified_pair``: undistort -> ego-motion (full-image LK,
     essential RANSAC) -> bad-frame gate on the inlier ratio -> rotation
@@ -15,6 +14,13 @@ ported yet).
     pairs at once, as batched torch ops on the device;
     ``load_data_optical_flow`` assembles a dataset from ``directory/images/``;
     ``FlowDataset`` is the lazy per-frame form.
+  * the polar pipeline of the radial trainer: ``polar_batch`` (ego-motion,
+    epipole, rotation removal and the polar warps for a stack of pairs),
+    ``polar_gt_batch`` (the exhaustive GT projected onto the radius and
+    warped to polar rows), ``load_polar_pairs_batched`` over both,
+    ``load_polar_pair_reference`` (the per-pair formulation it is held
+    to), and the host samplers ``generate_polar_training_patches`` and
+    ``smooth_epipole``.
 
 Every entry point runs on ``device``: the card unless the caller passes
 ``device="cpu"``; pairs come back as numpy arrays. RANSAC's draws are
@@ -35,9 +41,10 @@ import torch
 
 from ..geometry import Geometry
 from ..geometry3d import egomotion as ego
+from ..geometry3d import polar as polar_ops
 from ..geometry3d import undistort as undist
 from ..geometry3d.calibration import Calibration
-from ..utils.device import as_f32, host, resolve
+from ..utils.device import as_f32, host, resolve, true_div
 from . import groundtruth as gt_mod
 from .images import ImageLoader, load_image, scale, scale_batched_device, scale_np
 
@@ -355,16 +362,18 @@ def load_data_optical_flow(
 class FlowDataset:
     """Lazy per-frame caches over an image directory: full images,
     rectified previous frames, masks and GT, each pair rectified on
-    ``device`` (the card unless given ``device="cpu"``) when first read."""
+    ``device`` (the card unless given ``device="cpu"``) when first read,
+    with RANSAC's ``noise`` (as ``load_rectified_pair``)."""
 
     def __init__(self, geom: Geometry, cal: Calibration, directory: str,
                  delta: int = 1, cache_root: Optional[str] = None,
-                 device="cuda"):
+                 noise=None, device="cuda"):
         self.geom = geom
         self.cal = cal
         self.dir = directory
         self.delta = delta
         self.cache_root = cache_root
+        self.noise = noise
         self.device = resolve(device)
         imgdir = os.path.join(directory, "images")
         self.names = sorted(
@@ -404,7 +413,7 @@ class FlowDataset:
                 self.geom, self.cal,
                 self.get_full_image(i - self.delta), self.get_full_image(i),
                 self.cache_root, self.names[i].split(".")[0],
-                device=self.device)
+                noise=self.noise, device=self.device)
         return self._pairs[i]
 
     def get_patches(self, n: int, rng: np.random.RandomState, learning=None):
@@ -425,3 +434,343 @@ class FlowDataset:
             raise ValueError("no good pairs in dataset")
         return sample_patches(self.geom, learning, images, flows[:-1],
                               masks[:-1], n, rng)
+
+
+# ---------------------------------------------------------------------------
+# radial / polar pipeline
+# ---------------------------------------------------------------------------
+
+def flow_norm(flow: np.ndarray) -> np.ndarray:
+    return np.sqrt(flow[0] ** 2 + flow[1] ** 2) + 1e-12
+
+
+def project_groundtruth(flow: np.ndarray, gds: np.ndarray, e2) -> Tuple[np.ndarray, np.ndarray]:
+    """Project cartesian GT flow (2, H, W) onto the radial direction from
+    the epipole e2 = (x, y). Returns (proj (H, W) int-valued, gds zeroed
+    where the projection is negative)."""
+    H, W = flow.shape[1], flow.shape[2]
+    ys = np.arange(H, dtype=np.float32)[:, None] - float(e2[1])
+    xs = np.arange(W, dtype=np.float32)[None, :] - float(e2[0])
+    radial = np.stack([np.broadcast_to(ys, (H, W)),
+                       np.broadcast_to(xs, (H, W))])
+    n = flow_norm(radial)
+    radial = radial / n
+    projf = flow[0] * radial[0] + flow[1] * radial[1]
+    proj = np.floor(projf + 0.5)
+    gds = gds * (projf >= 0)
+    return proj.astype(np.float32), gds.astype(np.float32)
+
+
+def saturate_groundtruth(flow: np.ndarray, gds: np.ndarray, maxflow: float):
+    """Clamp projected GT to maxflow and invalidate the clamped pixels."""
+    sat = (flow <= maxflow).astype(np.float32)
+    flow = flow * sat + (1 - sat) * maxflow
+    gds = gds * sat
+    return flow, gds
+
+
+@dataclasses.dataclass
+class PolarPair:
+    polar_image: np.ndarray
+    polar_prev_image: np.ndarray
+    polar_mask: np.ndarray
+    e2: np.ndarray
+    good: bool
+    polar_gt: Optional[np.ndarray] = None
+    polar_gt_mask: Optional[np.ndarray] = None
+
+
+def load_polar_pair(
+    cal: Calibration, prev: np.ndarray, img: np.ndarray,
+    h_img: int, w_img: int, h_input: int, w_input: int, w_kernel: int,
+    geom_gt: Optional[Geometry] = None, max_flow: Optional[float] = None,
+    noise=None, device="cuda",
+) -> PolarPair:
+    """One pair through ``load_polar_pairs_batched``."""
+    return load_polar_pairs_batched(
+        cal, [np.asarray(prev), np.asarray(img)], h_img, w_img,
+        h_input, w_input, w_kernel, geom_gt, max_flow, noise=noise,
+        device=device)[0]
+
+
+def load_polar_pair_reference(
+    cal: Calibration, prev: np.ndarray, img: np.ndarray,
+    h_img: int, w_img: int, h_input: int, w_input: int, w_kernel: int,
+    geom_gt: Optional[Geometry] = None, max_flow: Optional[float] = None,
+    noise=None, device="cuda",
+) -> PolarPair:
+    """Step-by-step per-pair formulation of the polar loader, kept as the
+    semantic reference of the batched one: ego-motion (full LK), epipole,
+    rotation removal, the one-pixel border zeroed, the polar warps on the
+    float grid, and the GT (exhaustive WTA) projected onto the radius in
+    float64 on the host."""
+    dev = resolve(device)
+    prev_t, img_t = as_f32(prev, dev), as_f32(img, dev)
+    if noise is not None:
+        noise = as_f32(noise, dev)
+    em = ego.get_ego_motion(prev_t, img_t, cal.K,
+                            max_points=cal.sfm.max_points,
+                            quality=cal.sfm.points_quality, noise=noise,
+                            tracker="full")
+    ratio = float(em.n_inliers) / max(float(em.n_found), 1.0)
+    e2 = host(ego.epipole(cal.K, em.T)) * (w_img / cal.wImg)
+    if ratio < cal.bad_image_threshold:
+        z = np.zeros((h_input, w_input), np.float32)
+        return PolarPair(z, z, z, e2, False)
+
+    img_s = scale(img_t, h_img, w_img)
+    prev_s = scale(prev_t, h_img, w_img)
+    Ks = cal.K.copy()
+    Ks[0] *= w_img / cal.wImg
+    Ks[1] *= h_img / cal.hImg
+    prev_w = undist.remove_ego_motion(prev_s, Ks, em.R)
+    ones = torch.ones((h_img, w_img, 1), device=dev)
+    mask = (undist.remove_ego_motion(ones, Ks, em.R)[..., 0] > 0.5).float()
+    mask[0, :] = 0
+    mask[-1, :] = 0
+    mask[:, 0] = 0
+    mask[:, -1] = 0
+
+    rmax = polar_ops.get_rmax(h_img, w_img, e2)
+    lp = (w_kernel - 1) // 2
+    grid = polar_ops.get_c2p_grid(
+        w_img, h_img, w_input, h_input, float(e2[0]), float(e2[1]),
+        lpadding=lp, rpadding=(w_kernel - 1) - lp, rmax=rmax, device=dev)
+    p_img = host(polar_ops.warp_grid(img_s, grid))
+    p_prev = host(polar_ops.warp_grid(prev_w, grid))
+    p_mask = (host(polar_ops.warp_grid(mask[..., None], grid)[..., 0])
+              > 0).astype(np.float32)
+
+    p_gt = p_gt_mask = None
+    if geom_gt is not None:
+        fy, fx, conf = gt_mod.exhaustive_flow(geom_gt, prev_w, img_s,
+                                              device=dev)
+        flow = np.stack([fy, fx])
+        gds = (conf > 0).astype(np.float32) * host(mask)
+        proj, gds = project_groundtruth(flow, gds, e2)
+        if max_flow is not None:
+            # max_flow is in polar rows; the projected GT in cartesian
+            # radial pixels, rmax / h_input of a row each
+            proj, gds = saturate_groundtruth(
+                proj, gds, max_flow * float(rmax) / h_input)
+        proj = proj * gds
+        both = torch.from_numpy(np.stack([proj, gds], axis=-1)).to(dev)
+        warped = host(polar_ops.warp_grid(both, grid))
+        # cartesian radial pixels -> polar rows
+        p_gt = warped[..., 0] * (h_input / float(rmax))
+        p_gt_mask = (warped[..., 1] > 0.99).astype(np.float32)
+    return PolarPair(p_img, p_prev, p_mask, e2, True, p_gt, p_gt_mask)
+
+
+@torch.no_grad()
+def polar_batch(prevs: torch.Tensor, imgs: torch.Tensor, K, cal_w: int,
+                cal_h: int, h_img: int, w_img: int, h_input: int,
+                w_input: int, w_kernel: int, max_points: int, quality: float,
+                noise: torch.Tensor, pixel_prevs: Optional[torch.Tensor] = None,
+                pixel_imgs: Optional[torch.Tensor] = None):
+    """Ego-motion -> epipole -> rotation removal -> polar warps for (B, H,
+    W, C) frame pairs on their device: corners, full-image LK, essential
+    RANSAC with ``noise`` shared by every item, the epipole scaled to the
+    working width, the rotation warp of the previous frame and of a ones
+    mask (> 0.5, its one-pixel border zeroed), rmax and the polar grid per
+    item in float32, and the polar warps of the current frame, the warped
+    previous frame and the mask (> 0).
+
+    ``pixel_prevs``/``pixel_imgs`` (optional, same shapes) split the
+    frames' roles: the geometry and the cartesian frames the GT matcher
+    reads come from ``prevs``/``imgs``; the polar pixel images are the
+    pixel frames warped through that geometry (training on noisy pixels
+    with targets from clean frames).
+
+    Returns (p_img, p_prev, p_mask, e2, n_inliers, n_found, prev_w,
+    img_s, mask) as tensors."""
+    K = as_f32(K, prevs.device)
+    Ks = K.clone()
+    Ks[0] = Ks[0] * (w_img / cal_w)
+    Ks[1] = Ks[1] * (h_img / cal_h)
+    lp = (w_kernel - 1) // 2
+    pts, pvalid = ego.good_features_to_track_batched(prevs, max_points, quality)
+    pts2, status = ego.track_lk_batched(prevs, imgs, pts)
+    em = ego.get_ego_motion_from_matches_batched(pts, pts2, pvalid & status,
+                                                 K, noise)
+    e = em.T @ K.T
+    e2 = (e[:, :2] / e[:, 2:3]) * (w_img / cal_w)
+    img_s = scale_batched_device(imgs, h_img, w_img)
+    prev_s = scale_batched_device(prevs, h_img, w_img)
+    prev_w = undist.remove_ego_motion_batched(prev_s, Ks, em.R)
+    ones = torch.ones((prevs.shape[0], h_img, w_img, 1), device=prevs.device)
+    mask = (undist.remove_ego_motion_batched(ones, Ks, em.R)[..., 0]
+            > 0.5).float()
+    border = torch.zeros((h_img, w_img), device=prevs.device)
+    border[1:-1, 1:-1] = 1.0
+    mask = mask * border
+    rmax = polar_ops.get_rmax_batched(h_img, w_img, e2)
+    grid = polar_ops.get_c2p_grid_batched(
+        w_img, h_img, w_input, h_input, e2[:, 0], e2[:, 1], rmax,
+        lpadding=lp, rpadding=(w_kernel - 1) - lp)
+    if pixel_prevs is None:
+        pix_img_s, pix_prev_w = img_s, prev_w
+    else:
+        pix_img_s = scale_batched_device(pixel_imgs, h_img, w_img)
+        pix_prev_w = undist.remove_ego_motion_batched(
+            scale_batched_device(pixel_prevs, h_img, w_img), Ks, em.R)
+    p_img = polar_ops.warp_grid_batched(pix_img_s, grid)
+    p_prev = polar_ops.warp_grid_batched(pix_prev_w, grid)
+    p_mask = (polar_ops.warp_grid_batched(mask[..., None], grid)[..., 0]
+              > 0).float()
+    return (p_img, p_prev, p_mask, e2, em.n_inliers, em.n_found, prev_w,
+            img_s, mask)
+
+
+@torch.no_grad()
+def polar_gt_batch(flows_y: torch.Tensor, flows_x: torch.Tensor,
+                   confs: torch.Tensor, masks: torch.Tensor, e2s: torch.Tensor,
+                   h_img: int, w_img: int, h_input: int, w_input: int,
+                   w_kernel: int, max_flow: float = float("inf")):
+    """The GT of (B, h_img, w_img) flows projected onto the radius from
+    each epipole in float32, quantized floor(x + 0.5), kept where the
+    projection is >= 0, saturated at ``max_flow`` polar rows (max_flow rmax
+    / h_input cartesian pixels; inf keeps every value), warped to polar
+    and scaled to polar rows by h_input / rmax. Returns (gt, gt mask > 0.99)
+    (B, h_input, w_input + w_kernel - 1)."""
+    dev = flows_y.device
+    lp = (w_kernel - 1) // 2
+    ys = (torch.arange(h_img, dtype=torch.float32, device=dev)[None, :, None]
+          - e2s[:, 1, None, None])
+    xs = (torch.arange(w_img, dtype=torch.float32, device=dev)[None, None, :]
+          - e2s[:, 0, None, None])
+    n = torch.sqrt(ys * ys + xs * xs) + 1e-12
+    projf = (flows_y * ys + flows_x * xs) / n
+    proj = torch.floor(projf + 0.5)
+    gds = (confs > 0).float() * masks * (projf >= 0).float()
+    rmax = polar_ops.get_rmax_batched(h_img, w_img, e2s)
+    max_flow_cart = true_div(max_flow * rmax, h_input)[:, None, None]
+    sat = (proj <= max_flow_cart).float()
+    proj = torch.where(sat > 0, proj, max_flow_cart)    # inf-safe clamp
+    gds = gds * sat
+    proj = proj * gds
+    grid = polar_ops.get_c2p_grid_batched(
+        w_img, h_img, w_input, h_input, e2s[:, 0], e2s[:, 1], rmax,
+        lpadding=lp, rpadding=(w_kernel - 1) - lp)
+    warped = polar_ops.warp_grid_batched(torch.stack([proj, gds], dim=-1), grid)
+    rows = torch.full_like(rmax, float(h_input)) / rmax
+    return (warped[..., 0] * rows[:, None, None],
+            (warped[..., 1] > 0.99).float())
+
+
+def load_polar_pairs_batched(
+    cal: Calibration, frames: List[np.ndarray],
+    h_img: int, w_img: int, h_input: int, w_input: int, w_kernel: int,
+    geom_gt: Optional[Geometry] = None, max_flow: Optional[float] = None,
+    delta: int = 1, pixel_frames: Optional[List[np.ndarray]] = None,
+    noise=None, device="cuda",
+) -> List[PolarPair]:
+    """The polar loader over the consecutive pairs (frames[k], frames[k +
+    delta]) in one batched pass (``polar_batch``), then, with ``geom_gt``,
+    the exhaustive GT in chunks of 2 pairs and its projection
+    (``polar_gt_batch``). ``pixel_frames`` (optional, index-aligned with
+    ``frames``) supplies the polar pixel images (see ``polar_batch``).
+    ``noise``: RANSAC's (64, 8, max_points) Gumbel draw (default
+    ``egomotion.gumbel_noise``, seed 1)."""
+    dev = resolve(device)
+    prevs = as_f32(np.stack(frames[:-delta]), dev)
+    imgs = as_f32(np.stack(frames[delta:]), dev)
+    pix_prevs = pix_imgs = None
+    if pixel_frames is not None:
+        if len(pixel_frames) != len(frames):
+            raise ValueError("pixel_frames must be index-aligned with "
+                             f"frames ({len(pixel_frames)} vs {len(frames)})")
+        pix_prevs = as_f32(np.stack(pixel_frames[:-delta]), dev)
+        pix_imgs = as_f32(np.stack(pixel_frames[delta:]), dev)
+    if noise is None:
+        noise = ego.gumbel_noise(64, cal.sfm.max_points, dev)
+    (p_img, p_prev, p_mask, e2s, n_inl, n_fnd, prev_w, img_s,
+     masks) = polar_batch(prevs, imgs, cal.K, cal.wImg, cal.hImg, h_img,
+                          w_img, h_input, w_input, w_kernel,
+                          cal.sfm.max_points, cal.sfm.points_quality,
+                          as_f32(noise, dev), pix_prevs, pix_imgs)
+    n_inl, n_fnd, e2s_np = host(n_inl), host(n_fnd), host(e2s)
+    B = prevs.shape[0]
+    good = [float(n_inl[k]) / max(float(n_fnd[k]), 1.0)
+            >= cal.bad_image_threshold for k in range(B)]
+
+    gt_polar = gt_mask_polar = None
+    if geom_gt is not None:
+        fy, fx, conf = gt_mod.exhaustive_flow_batched(geom_gt, prev_w, img_s,
+                                                      chunk=2, device=dev)
+        gt_polar, gt_mask_polar = (host(o) for o in polar_gt_batch(
+            as_f32(fy, dev), as_f32(fx, dev), as_f32(conf, dev), masks, e2s,
+            h_img, w_img, h_input, w_input, w_kernel,
+            float(max_flow) if max_flow is not None else float("inf")))
+
+    p_img, p_prev, p_mask = host(p_img), host(p_prev), host(p_mask)
+    out = []
+    for k in range(B):
+        if not good[k]:
+            z = np.zeros((h_input, w_input), np.float32)
+            out.append(PolarPair(z, z, z, e2s_np[k], False))
+            continue
+        out.append(PolarPair(
+            p_img[k], p_prev[k], p_mask[k], e2s_np[k], True,
+            None if gt_polar is None else gt_polar[k],
+            None if gt_mask_polar is None else gt_mask_polar[k]))
+    return out
+
+
+def smooth_epipole(prev_e2: Optional[np.ndarray], e2: np.ndarray,
+                   h_img: int, w_img: int, alpha: float = 0.5) -> np.ndarray:
+    """EMA epipole smoothing; an epipole outside the frame keeps the
+    previous one."""
+    if prev_e2 is None:
+        return e2
+    if not (0 <= e2[0] < w_img and 0 <= e2[1] < h_img):
+        return prev_e2
+    return alpha * e2 + (1 - alpha) * prev_e2
+
+
+def generate_polar_training_patches(
+    pair: PolarPair, h_patch: int, w_patch: int, h_win: int,
+    n: int, rng: np.random.RandomState,
+):
+    """Polar patch sampler with mask and GT-mask rejection. Patches are
+    (h_patch, w_patch) with h_patch = hKernel + hWin - 1, so the trainer
+    net gives one matcher row a patch; the target is the GT at that row's
+    receptive-field centre (row ceil(hKernel/2) - 1, column w_patch // 2).
+    The mask must be valid over the whole patch. Returns (prev_patches,
+    curr_patches, targets in [0, h_win)), or None if no patch was kept
+    within n * 300 tries."""
+    H, W = pair.polar_image.shape[:2]
+    if H < h_patch or W < w_patch:
+        raise ValueError(
+            f"polar image {H}x{W} smaller than the patch {h_patch}x{w_patch}")
+    h_kernel = h_patch - h_win + 1
+    h_off = (h_kernel + 1) // 2 - 1          # ceil(hKernel/2) - 1
+    w_off = w_patch // 2
+    p1, p2, ts = [], [], []
+    tries = 0
+    while len(ts) < n and tries < n * 300:
+        tries += 1
+        # +1: the last valid origin (the largest radius) is sampled too
+        y = rng.randint(0, H - h_patch + 1)
+        x = rng.randint(0, W - w_patch + 1)
+        yc, xc = y + h_off, x + w_off
+        if pair.polar_mask[y:y + h_patch, x:x + w_patch].min() < 0.1:
+            continue
+        if pair.polar_gt_mask is not None:
+            gx = min(xc, pair.polar_gt_mask.shape[1] - 1)
+            gy = min(yc, pair.polar_gt_mask.shape[0] - 1)
+            if pair.polar_gt_mask[gy, gx] < 0.5:
+                continue
+            t = pair.polar_gt[gy, gx]
+        else:
+            t = 0.0
+        t = float(np.floor(t + 0.5))
+        if not (0 <= t < h_win):
+            continue
+        p1.append(pair.polar_prev_image[y:y + h_patch, x:x + w_patch])
+        p2.append(pair.polar_image[y:y + h_patch, x:x + w_patch])
+        ts.append(int(t))
+    if not ts:
+        return None
+    return (np.stack(p1).astype(np.float32), np.stack(p2).astype(np.float32),
+            np.asarray(ts, np.int32))

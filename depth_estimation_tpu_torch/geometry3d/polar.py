@@ -7,7 +7,11 @@ Conventions: grids are (2, hdst, wdst) float32 with channel 0 = source y,
 channel 1 = source x (0-based pixel coordinates); warping samples
 bilinearly and fills out-of-range with 0. The grid builders take a
 ``device`` (the card by default; ``device="cpu"`` to run on the CPU); the
-other functions run where their tensors are.
+other functions run where their tensors are. ``get_c2p_grid`` and
+``get_rmax`` take Python floats (the per-pair reference and the tester);
+``get_c2p_grid_batched``, ``get_rmax_batched`` and ``warp_grid_batched``
+take a centre and rmax per item as float32 tensors (the batched polar
+loader).
 """
 
 from __future__ import annotations
@@ -59,6 +63,28 @@ def get_c2p_grid(wsrc: int, hsrc: int, wdst: int, hdst: int,
     return grid
 
 
+def get_c2p_grid_batched(wsrc: int, hsrc: int, wdst: int, hdst: int,
+                         xcenter: torch.Tensor, ycenter: torch.Tensor,
+                         rmax: torch.Tensor, lpadding: int = 0,
+                         rpadding: int = 0, alpha: float = 1.0) -> torch.Tensor:
+    """``get_c2p_grid`` with a centre and rmax per item: (B,) float32
+    tensors on the grids' device. Returns (B, 2, hdst, wdst + lpadding +
+    rpadding) in float32, the arithmetic of the reference's traced grid
+    (kr = rmax / hdst^alpha a true division in float32)."""
+    dev = rmax.device
+    kr = true_div(rmax, hdst ** alpha)[:, None, None]
+    ktheta = 2 * math.pi / wdst
+    i = torch.arange(hdst, dtype=torch.float32, device=dev)[:, None]
+    j = torch.arange(wdst, dtype=torch.float32, device=dev)[None, :]
+    r = kr * i ** alpha
+    theta = ktheta * j
+    gy = r * torch.sin(theta) + ycenter[:, None, None]
+    gx = r * torch.cos(theta) + xcenter[:, None, None]
+    grid = torch.stack([gy, gx], dim=1)
+    return torch.cat([grid[..., wdst - lpadding:], grid,
+                      grid[..., :rpadding]], dim=-1)
+
+
 def get_p2c_grid(wsrc: int, hsrc: int, wdst: int, hdst: int,
                  xcenter: Optional[float] = None, ycenter: Optional[float] = None,
                  rmax: Optional[float] = None, alpha: float = 1.0,
@@ -86,17 +112,24 @@ def get_p2c_grid(wsrc: int, hsrc: int, wdst: int, hdst: int,
 def warp_grid(img: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     """Bilinear warp: out[i, j] = img(grid[0, i, j], grid[1, i, j]), zero
     for out-of-range taps. img (H, W, C)."""
-    H, W = img.shape[0], img.shape[1]
-    gy, gx = grid[0], grid[1]
+    return warp_grid_batched(img[None], grid[None])[0]
+
+
+def warp_grid_batched(imgs: torch.Tensor, grids: torch.Tensor) -> torch.Tensor:
+    """``warp_grid`` of each item: imgs (B, H, W, C), grids (B, 2, h, w)
+    -> (B, h, w, C)."""
+    H, W = imgs.shape[1], imgs.shape[2]
+    gy, gx = grids[:, 0], grids[:, 1]
     y0f = torch.floor(gy)
     x0f = torch.floor(gx)
     y0 = y0f.to(torch.int64)
     x0 = x0f.to(torch.int64)
     dy = (gy - y0f)[..., None]
     dx = (gx - x0f)[..., None]
+    b = torch.arange(imgs.shape[0], device=imgs.device)[:, None, None]
 
     def at(yy, xx):
-        v = img[yy.clamp(0, H - 1), xx.clamp(0, W - 1)]
+        v = imgs[b, yy.clamp(0, H - 1), xx.clamp(0, W - 1)]
         ok = (yy >= 0) & (yy <= H - 1) & (xx >= 0) & (xx <= W - 1)
         return v * ok[..., None]
 
@@ -121,6 +154,15 @@ def get_rmax(h: int, w: int, e2) -> float:
         max(ex * ex + ey * ey, (w - ex) ** 2 + ey * ey),
         max(ex * ex + (h - ey) ** 2, (w - ex) ** 2 + (h - ey) ** 2),
     )))
+
+
+def get_rmax_batched(h: int, w: int, e2: torch.Tensor) -> torch.Tensor:
+    """``get_rmax`` in float32 for (B, 2) epipoles (x, y) -> (B,)."""
+    ex, ey = e2[:, 0], e2[:, 1]
+    d = torch.maximum(
+        torch.maximum(ex * ex + ey * ey, (w - ex) ** 2 + ey * ey),
+        torch.maximum(ex * ex + (h - ey) ** 2, (w - ex) ** 2 + (h - ey) ** 2))
+    return torch.floor(torch.sqrt(d))
 
 
 def get_k_output(h_input: int, h_kernel: int, h_win: int) -> float:

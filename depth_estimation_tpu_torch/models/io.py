@@ -13,9 +13,15 @@ writes for the same tree, so a checkpoint the port saves loads in the
 JAX package and the reverse.
 
 Bridges: ``*_state_from_jax`` map a flax tree (numpy leaves) onto a
-module's state dict; ``filter_tree``, ``multiscale_tree`` and
-``model_tree`` map the port's single-scale and multiscale modules back
-onto the flax tree.
+module's state dict; ``filter_tree``, ``multiscale_tree``,
+``radial_tree``, ``legacy_tree`` and ``model_tree`` map the port's
+modules back onto the flax tree.
+
+The other families' trainers write their own layouts:
+``save_radial_checkpoint`` (``e{N}.msgpack`` and a version-1
+``meta.json``), ``save_v2_checkpoint`` (a bare ``e{N}``) and
+``save_legacy_checkpoint`` (``params.msgpack`` with the discretizer in
+``meta.json``); ``load_weights_into`` reads any of them back.
 """
 
 from __future__ import annotations
@@ -318,6 +324,13 @@ def _np(t: torch.Tensor) -> np.ndarray:
     return np.ascontiguousarray(t.detach().cpu().numpy(), np.float32)
 
 
+def _conv_tree(state: Dict[str, torch.Tensor], name: str) -> Dict:
+    """A ``DenseConv``'s weight and bias as a flax nn.Conv's (kh, kw, cin,
+    cout) kernel and bias. The inverse of ``_conv_state``."""
+    return {"kernel": _np(state[f"{name}.weight"].permute(2, 3, 1, 0)),
+            "bias": _np(state[f"{name}.bias"])}
+
+
 def filter_tree(geometry: Geometry, state: Dict[str, torch.Tensor]) -> Dict:
     """A ``ConvFilter`` state dict as the flax ConvFilter tree
     ``{"params": {"layerN": {"kernel", "bias"}}}`` of numpy arrays: dense
@@ -327,10 +340,10 @@ def filter_tree(geometry: Geometry, state: Dict[str, torch.Tensor]) -> Dict:
     for i in range(len(geometry.layers)):
         name = f"layer{i + 1}"
         if f"{name}.kernel" in state:
-            kernel = _np(state[f"{name}.kernel"])
+            params[name] = {"kernel": _np(state[f"{name}.kernel"]),
+                            "bias": _np(state[f"{name}.bias"])}
         else:
-            kernel = _np(state[f"{name}.weight"].permute(2, 3, 1, 0))
-        params[name] = {"kernel": kernel, "bias": _np(state[f"{name}.bias"])}
+            params[name] = _conv_tree(state, name)
     return {"params": params}
 
 
@@ -353,15 +366,46 @@ def multiscale_tree(geometry: Geometry, state: Dict[str, torch.Tensor]) -> Dict:
     return tree
 
 
+def radial_tree(layers, state: Dict[str, torch.Tensor]) -> Dict:
+    """A ``RadialFlowNetwork`` state dict as the flax RadialFilter tree
+    ``{"params": {"layer{i}": {"kernel", "bias"}}}``; ``layers`` is the
+    radial spec. The inverse of ``radial_state_from_jax``."""
+    n = sum(1 for l in layers if not isinstance(l, str))
+    return {"params": {f"layer{i}": _conv_tree(state, f"filter.layer{i}")
+                       for i in range(1, n + 1)}}
+
+
+def legacy_tree(state: Dict[str, torch.Tensor]) -> Dict:
+    """A ``LegacyFlowModel`` (``{"params": {"kernel", "bias"}}``) or
+    ``DepthClassifierCNN`` (``conv1..3`` and the nn.Dense ``classifier``,
+    an (in, out) kernel) state dict as its flax tree. The inverse of
+    ``legacy_state_from_jax``."""
+    if "conv.weight" in state:
+        return {"params": _conv_tree(state, "conv")}
+    params = {name: _conv_tree(state, name)
+              for name in ("conv1", "conv2", "conv3")}
+    params["classifier"] = {"kernel": _np(state["classifier.weight"].T),
+                            "bias": _np(state["classifier.bias"])}
+    return {"params": params}
+
+
 def model_tree(model) -> Dict:
-    """The flax tree of a ``FlowModel``, ``MultiscaleFlowModel`` or
-    ``ConvFilter`` (numpy leaves)."""
+    """The flax tree of a ``FlowModel``, ``MultiscaleFlowModel``,
+    ``ConvFilter``, ``RadialFlowNetwork``, ``V2Network``,
+    ``DepthClassifierCNN`` or ``LegacyFlowModel`` (numpy leaves)."""
     from .filters import ConvFilter
     from .flow import FlowModel
+    from .legacy_depth import DepthClassifierCNN, LegacyFlowModel
     from .multiscale import MultiscaleFlowModel
+    from .radial import RadialFlowNetwork
+    from .version2 import V2Network
     if isinstance(model, MultiscaleFlowModel):
         return multiscale_tree(model.geometry, model.state_dict())
-    if isinstance(model, FlowModel):
+    if isinstance(model, RadialFlowNetwork):
+        return radial_tree(model.layers, model.state_dict())
+    if isinstance(model, (DepthClassifierCNN, LegacyFlowModel)):
+        return legacy_tree(model.state_dict())
+    if isinstance(model, (FlowModel, V2Network)):
         model = model.filter
     if isinstance(model, ConvFilter):
         return filter_tree(model.geometry, model.state_dict())
@@ -369,15 +413,22 @@ def model_tree(model) -> Dict:
 
 
 def load_tree_into(model, tree: Dict):
-    """Load a flax tree (numpy leaves) into a ``FlowModel``,
-    ``MultiscaleFlowModel`` or ``ConvFilter``. Returns the module."""
+    """Load a flax tree (numpy leaves) into any module ``model_tree``
+    takes. Returns the module."""
     from .filters import ConvFilter
     from .flow import FlowModel
+    from .legacy_depth import DepthClassifierCNN, LegacyFlowModel
     from .multiscale import MultiscaleFlowModel
+    from .radial import RadialFlowNetwork
+    from .version2 import V2Network
     if isinstance(model, MultiscaleFlowModel):
         model.load_state_dict(multiscale_state_from_jax(model.geometry, tree))
-    elif isinstance(model, (FlowModel, ConvFilter)):
-        trunk = model.filter if isinstance(model, FlowModel) else model
+    elif isinstance(model, RadialFlowNetwork):
+        model.load_state_dict(radial_state_from_jax(model.layers, tree))
+    elif isinstance(model, (DepthClassifierCNN, LegacyFlowModel)):
+        model.load_state_dict(legacy_state_from_jax(tree))
+    elif isinstance(model, (FlowModel, V2Network, ConvFilter)):
+        trunk = model if isinstance(model, ConvFilter) else model.filter
         trunk.load_state_dict(filter_state_from_jax(trunk.geometry, tree))
     else:
         raise TypeError(f"cannot load a flax tree into {type(model).__name__}")
@@ -445,16 +496,77 @@ def _restore(template: Any, tree: Any, where: str = "") -> Any:
 
 
 def load_weights_into(path: str, template: Any) -> Any:
-    """Finetune path: the checkpoint's weights into ``template``: a module
-    (``FlowModel``, ``MultiscaleFlowModel``, ``ConvFilter``; loaded in
-    place and returned) or a flax tree (a tree of the same structure is
-    returned)."""
-    with open(os.path.join(path, "params.msgpack"), "rb") as f:
+    """Finetune path: the weights of a checkpoint directory's
+    ``params.msgpack``, or of the weights file ``path`` (a radial
+    ``e{N}.msgpack``, a version2 ``e{N}``), into ``template``: a module
+    (any ``model_tree`` takes; loaded in place and returned) or a flax tree
+    (a tree of the same structure is returned)."""
+    if os.path.isdir(path):
+        path = os.path.join(path, "params.msgpack")
+    with open(path, "rb") as f:
         tree = unpackb(f.read())
     if isinstance(template, torch.nn.Module):
         _restore(model_tree(template), tree)
         return load_tree_into(template, tree)
     return _restore(template, tree)
+
+
+def _write_weights(path: str, model) -> None:
+    with open(path, "wb") as f:
+        f.write(packb(model_tree(model)))
+
+
+def _write_meta(directory: str, meta: dict) -> None:
+    with open(os.path.join(directory, "meta.json"), "w") as f:
+        json.dump(meta, f)
+
+
+def save_radial_checkpoint(directory: str, model, epoch: int) -> str:
+    """The radial trainer's weights-only save of ``epoch``:
+    ``<directory>/e{epoch}.msgpack`` and ``meta.json`` ``{"version": 1,
+    "layers", "hWin"}``, each 'tanh' of the spec as the string. Returns the
+    weights file's path."""
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, f"e{epoch}.msgpack")
+    _write_weights(path, model)
+    _write_meta(directory, {
+        "version": 1,
+        "layers": [l if isinstance(l, str) else list(l) for l in model.layers],
+        "hWin": model.h_win})
+    return path
+
+
+def save_v2_checkpoint(directory: str, model, epoch: int) -> str:
+    """The version2 trainer's save of ``epoch``: the bare weights file
+    ``<directory>/e{epoch}`` and ``meta.json`` with ``"family":
+    "version2"`` and the network's data parameters. Returns the weights
+    file's path."""
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, f"e{epoch}")
+    _write_weights(path, model)
+    d = model.datap
+    _write_meta(directory, {
+        "version": 1, "family": "version2", "wImg": d.wImg, "hImg": d.hImg,
+        "normalization_k": d.normalization_k,
+        "layers": [list(l) for l in d.layers], "hWin": d.hWin,
+        "wWin": d.wWin})
+    return path
+
+
+def save_legacy_checkpoint(directory: str, model, discretizer, patch: int,
+                           score_history: Optional[list] = None) -> str:
+    """The legacy depth classifier's save: ``<directory>/params.msgpack``
+    and ``meta.json`` ``{n_classes, cut_depth, bin_step, patch, score}``
+    (``discretizer`` a ``data.depth_legacy.DepthDiscretizer``, the score
+    the per-epoch history). Returns the directory."""
+    os.makedirs(directory, exist_ok=True)
+    _write_weights(os.path.join(directory, "params.msgpack"), model)
+    _write_meta(directory, {
+        "n_classes": discretizer.n_classes,
+        "cut_depth": discretizer.cut_depth,
+        "bin_step": discretizer.bin_step, "patch": patch,
+        "score": score_history or []})
+    return directory
 
 
 def load_model(path: str) -> Tuple[Geometry, Learning, Dict, dict]:
