@@ -84,7 +84,23 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      epoch, n 2000 / m 500 -> params.msgpack -> loaded back -> the class
      map of one pair); card vs CPU: the radial loader at 'gopro' scaled by
      0.5, version2's pairs, the class map, and 3 steps of each trainer;
-     each step's time, kernels and device time, and each loader's time.
+     each step's time, kernels and device time, and each loader's time;
+ 13. serving, B1's and B3's counts zeroed before and read after: `tools
+     export` of the car model's flow forward (f32 and --bf16) and of the
+     complete online program (--pipeline, B=32, 'warp' mode), of the
+     families phase's radial, version2 and legacy checkpoints and of
+     config3's multiscale decode on seeded weights; each artifact loaded
+     (serving.load_exported), called once with its B1 / B3 launches
+     counted (the pipeline's B3 launch is its torch.cond's banded branch)
+     and held to the live program (integers equal, floats within 1e-6),
+     then both timed; the pipeline's kernels and device time against the
+     live step's; the 'warp' step at B=128 and its compensation alone,
+     with the live host read of the predicate against torch.cond run
+     eagerly (the form the trace keeps, C4);
+     and the CLIs: `tools stream` (synchronous and --pipeline 3) over a
+     640x480 PNG sequence, `time-matching`, `video` on 3 frames and
+     `test_radial` on the radial checkpoint, each exiting 0 and writing
+     what it writes.
 
 The build's registers and spills are printed for every kernel.
 
@@ -97,8 +113,8 @@ largest error at the C24 shapes; B3 in f32 with grid_sample's time as
 library_ms, both also 10 calls back to back, and its bf16 times and
 bound; B4 also with its dependency
 floor and its device time over a solve; B1 and B4 also their launches
-on the training phase; each its launches on the families' phase), the
-card, and {"ok": true,
+on the training phase; each its launches on the families' phase; B1
+and B3 their launches on the serving phase), the card, and {"ok": true,
 "device": {...}}. A longer report goes to
 chiprun_out/chip_smoke_report.json.
 """
@@ -107,12 +123,10 @@ import gc
 import json
 import os
 import statistics
-import struct
 import subprocess
 import sys
 import tempfile
 import time
-import zlib
 
 import numpy as np
 import torch
@@ -1410,17 +1424,10 @@ def phase_timing(dev, card, ests, frames, gt_frames, report):
 # ---------------------------------------------------------------------------
 
 def write_png(path, rgb):
-    """uint8 (H, W, 3) as an 8-bit RGB PNG: unfiltered rows, zlib."""
-    h, w, _ = rgb.shape
-    raw = b"".join(b"\x00" + rgb[y].tobytes() for y in range(h))
-
-    def chunk(kind, body):
-        return (struct.pack(">I", len(body)) + kind + body
-                + struct.pack(">I", zlib.crc32(kind + body) & 0xffffffff))
+    """uint8 (H, W, 3) as an 8-bit RGB PNG (the package's encoder)."""
+    from depth_estimation_tpu_torch.data import images
     with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n"
-                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-                + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+        f.write(images.encode_png(rgb))
 
 
 def forward_sequence(seed, n, h=480, w=640):
@@ -2126,11 +2133,12 @@ def family_legacy(dev, card, root):
     return out
 
 
-def phase_families(dev, card, report):
+def phase_families(dev, card, root, report):
     """The radial, version2 and legacy depth trainers at full width, each
-    from frames on disk to a checkpoint its inference module loads back
-    (ROADMAP A.12). B1-B5's counts are zeroed before and read after: the
-    path reaches none of them. Returns the counts."""
+    from frames on disk under ``root`` to a checkpoint its inference module
+    loads back (ROADMAP A.12); the serving phase exports those checkpoints.
+    B1-B5's counts are zeroed before and read after: the path reaches none
+    of them. Returns the counts."""
     from depth_estimation_tpu_torch.flow import sor_kernel
     from depth_estimation_tpu_torch.ops import matching, matching_experimental, warp
     t_phase = time.perf_counter()
@@ -2141,13 +2149,11 @@ def phase_families(dev, card, report):
                 "match_throughput": matching_experimental.match_flow_throughput}
     for fn in counters.values():
         fn.launches = 0
-    tmp = tempfile.TemporaryDirectory()
-    out = {"radial": family_radial(dev, card, tmp.name),
-           "version2": family_v2(dev, card, tmp.name),
-           "legacy": family_legacy(dev, card, tmp.name)}
+    out = {"radial": family_radial(dev, card, root),
+           "version2": family_v2(dev, card, root),
+           "legacy": family_legacy(dev, card, root)}
     counts = {name: fn.launches for name, fn in counters.items()}
     out["launches"] = counts
-    tmp.cleanup()
     out["seconds"] = time.perf_counter() - t_phase
     print(f"families: launches on this path {counts}; phase took "
           f"{out['seconds']:.1f} s", flush=True)
@@ -2180,6 +2186,288 @@ def phase_families(dev, card, report):
     check(not any(counts.values()), f"a kernel ran on the families' path: "
           f"{counts}")
     return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 13: serving
+# ---------------------------------------------------------------------------
+
+# artifact vs the live program on the card: the same kernels on the same
+# inputs in the same order; floats within TOL_ARTIFACT (room for a traced
+# program that re-associates a float sum), integers and `good` equal
+TOL_ARTIFACT = 1e-6
+SERVE_B = 32                # `tools export --pipeline`'s default batch
+SERVE_STREAM_FRAMES = 5
+
+
+def max_diff(got, want):
+    """Largest |got - want| over tensors whose integer or boolean parts must
+    be equal; inf and nan must sit at the same places. Returns (float
+    error, integers equal)."""
+    err, same = 0.0, True
+    for g, w in zip(got, want):
+        if not (g.is_floating_point() or w.is_floating_point()):
+            same = same and torch.equal(g, w)
+            continue
+        fin = torch.isfinite(w)
+        same = (same and torch.equal(torch.isfinite(g), fin)
+                and torch.equal(g[~fin], w[~fin]))
+        if fin.any():
+            err = max(err, (g[fin].float() - w[fin].float()).abs().max().item())
+    return err, same
+
+
+def exact_eager_cond(imgs, K, R, band=8, dtype=None):
+    """``remove_ego_motion_exact``'s traced form, ``torch.cond``, run
+    eagerly (the live form reads the predicate back to the host and calls
+    one branch)."""
+    from depth_estimation_tpu_torch.geometry3d import undistort as undist
+    H, W = imgs.shape[1], imgs.shape[2]
+    R = torch.as_tensor(R, dtype=torch.float32, device=imgs.device)
+    K = torch.as_tensor(K, dtype=torch.float32, device=imgs.device)
+    banded, gather = undist._exact_branches(band, dtype)
+    return torch.cond(undist.warp_in_band(K, R, H, W, band), banded, gather,
+                      (imgs, K, R))
+
+
+def run_cli(main, argv):
+    """One CLI entry point in this process; its exit code and what it
+    printed."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    return rc, buf.getvalue()
+
+
+def phase_serving(dev, card, geom, params, ests, frames, fam_root, report):
+    """Serving at the car model's width, every kernel count zeroed before
+    and read after: `tools export` of the flow forward (f32, bf16), of the
+    complete online program at B=32 ('warp' mode), of the families phase's
+    radial, version2 and legacy checkpoints and of config3's multiscale
+    decode on seeded weights; each artifact loaded, called and held to the
+    live program; the warp step with its host read and with eager
+    torch.cond (C4); the CLIs
+    (`tools stream` sync and --pipeline 3, `time-matching`, `video` on 3
+    frames, `test_radial` on the radial checkpoint). Returns B1's and B3's
+    launches on the phase."""
+    from depth_estimation_tpu_torch import api_batched, serving
+    from depth_estimation_tpu_torch.cli import test_radial as radial_cli
+    from depth_estimation_tpu_torch.cli import tools
+    from depth_estimation_tpu_torch.data import images
+    from depth_estimation_tpu_torch.geometry import Geometry, Learning
+    from depth_estimation_tpu_torch.geometry3d import undistort as undist
+    from depth_estimation_tpu_torch.geometry3d.calibration import ARDRONE
+    from depth_estimation_tpu_torch.models import io as mio
+    from depth_estimation_tpu_torch.models.flow import FlowModel, crop_features_center
+    from depth_estimation_tpu_torch.models.legacy_depth import DepthClassifierCNN
+    from depth_estimation_tpu_torch.models.multiscale import MultiscaleFlowModel
+    from depth_estimation_tpu_torch.models.radial import RadialFlowNetwork
+    from depth_estimation_tpu_torch.models.version2 import V2Network, V2Params
+    from depth_estimation_tpu_torch.ops import matching, warp
+    t_phase = time.perf_counter()
+    b1, b3 = matching.match_flow_fused, warp.banded_bilinear_warp
+    b1.launches = b3.launches = 0
+    tmp = tempfile.TemporaryDirectory()
+    out = {"artifacts": {}}
+
+    def export(name, model_dir, *extra):
+        path = os.path.join(tmp.name, name + ".pt2")
+        t0 = time.perf_counter()
+        rc, text = run_cli(tools.main, ["export", model_dir, "--out", path,
+                                        "--device", str(dev), *extra])
+        export_s = time.perf_counter() - t0
+        check(rc == 0 and os.path.exists(path), f"export {name}: {text}")
+        t0 = time.perf_counter()
+        ep = serving.load_exported(path)
+        program = ep.module()
+        load_s = time.perf_counter() - t0
+        out["artifacts"][name] = dict(
+            export_s=export_s, load_s=load_s, bytes=os.path.getsize(path),
+            nodes=len(ep.graph.nodes),
+            constant_bytes=sum(t.numel() * t.element_size()
+                               for t in ep.constants.values()
+                               if isinstance(t, torch.Tensor)))
+        return program
+
+    def hold(name, program, live, args, b1_calls=0, b3_calls=0):
+        """One artifact call (its B1/B3 launches counted) against the live
+        program, then both timed: CUDA-event medians of 5."""
+        n1, n3 = b1.launches, b3.launches
+        got = program(*args)
+        torch.cuda.synchronize()
+        d1, d3 = b1.launches - n1, b3.launches - n3
+        got = got if isinstance(got, (tuple, list)) else (got,)
+        want = live(*args)
+        want = want if isinstance(want, (tuple, list)) else (want,)
+        err, same = max_diff(got, want)
+        row = out["artifacts"][name]
+        row.update(max_abs_err=err, ints_equal=same, launches_b1=d1,
+                   launches_b3=d3, ms=cuda_ms(lambda: program(*args)),
+                   live_ms=cuda_ms(lambda: live(*args)))
+        print(f"[{card}] serving {name}: export {row['export_s']:.1f} s, "
+              f"load {row['load_s']:.1f} s, {row['bytes']} bytes ("
+              f"{row['nodes']} nodes, {row['constant_bytes']} bytes of "
+              f"constants); call "
+              f"{row['ms']:.3f} ms (live {row['live_ms']:.3f}); vs live max "
+              f"err {err:.2e}, integers equal {same}; B1 {d1} B3 {d3} "
+              f"launches a call", flush=True)
+        check(same and err <= TOL_ARTIFACT, f"serving {name} vs live: {row}")
+        check(d1 == b1_calls and d3 == b3_calls,
+              f"serving {name}: B1 {d1} (want {b1_calls}), B3 {d3} "
+              f"(want {b3_calls}) launches a call")
+        return got
+
+    # the flow forward, f32 and bf16 storage, on one working-size pair
+    model = mio.load_tree_into(FlowModel(geom, device=dev), params)
+    a, b = (x[0] for x in working_frames(13, 1, geom.hImg, geom.wImg, dev))
+    for dt in (torch.float32, torch.bfloat16):
+        name = f"flow_forward_{str(dt)[6:]}"
+        program = export(name, CAR_MODEL,
+                         *(["--bf16"] if dt == torch.bfloat16 else []))
+
+        def live(x, y, dt=dt):
+            f1 = crop_features_center(geom, model.features(x))
+            return matching.match_flow_fused(f1, model.features(y), geom.maxh,
+                                             geom.maxw, 8, False, dt)
+        hold(name, program, live, (a, b), b1_calls=1)
+
+    # the complete online program at B=32, 'warp' mode: the artifact's noise
+    # is the live step's draw (seeded 1 on the card), so the live program
+    # runs with its default noise
+    program = export("pipeline_warp_b32", CAR_MODEL, "--pipeline", "--batch",
+                     str(SERVE_B))
+    t1, t2 = forward_frames(torch.Generator(device=dev).manual_seed(13),
+                            SERVE_B, dev)
+    live = api_batched.make_batched_pipeline(geom, ARDRONE, device=dev)
+    got = hold("pipeline_warp_b32", program,
+               lambda x, y: live(params, x, y), (t1, t2), b1_calls=1,
+               b3_calls=1)
+    good = got[3].float().mean().item()
+    check(good >= 0.5, f"pipeline artifact: good on {good:.2f} of the items")
+    row = out["artifacts"]["pipeline_warp_b32"]
+    row["good_share"] = good
+    row["kernels"], row["device_ms"] = device_profile(lambda: program(t1, t2))
+    row["live_kernels"], row["live_device_ms"] = device_profile(
+        lambda: live(params, t1, t2))
+    print(f"[{card}] serving pipeline_warp_b32: good share {good:.3f}; a call "
+          f"runs {row['kernels']} kernels, {row['device_ms']:.1f} ms of device "
+          f"time (live {row['live_kernels']}, {row['live_device_ms']:.1f} ms)",
+          flush=True)
+
+    # the warp step and its compensation at B=128 with the live form (the
+    # predicate read on the host) and with the traced form, torch.cond, run
+    # eagerly, in turns: live, cond, cond, live
+    est = ests["warp"]
+    u1, feats1 = est._prep(frames[0])
+    R = torch.eye(3, device=dev).expand(B_MAIN, 3, 3).clone()
+    R[:, 0, 2], R[:, 2, 0] = 0.01, -0.01
+    Ks = est.K_scaled
+    live_exact = undist.remove_ego_motion_exact
+    c4 = {"step_host_read": [], "step_eager_cond": [],
+          "warp_host_read": [], "warp_eager_cond": []}
+    for form in ("host_read", "eager_cond", "eager_cond", "host_read"):
+        fn = live_exact if form == "host_read" else exact_eager_cond
+        undist.remove_ego_motion_exact = fn
+        try:
+            c4[f"step_{form}"].append(cuda_ms(lambda: est._step(u1, feats1,
+                                                                 frames[1])))
+            c4[f"warp_{form}"].append(cuda_ms(lambda: fn(feats1, Ks, R, 8)))
+        finally:
+            undist.remove_ego_motion_exact = live_exact
+    out["c4"] = c4
+    print(f"[{card}] C4 'warp' step B={B_MAIN}: host read "
+          f"{c4['step_host_read']} ms, eager torch.cond "
+          f"{c4['step_eager_cond']} ms; compensation alone: host read "
+          f"{c4['warp_host_read']} ms, eager torch.cond "
+          f"{c4['warp_eager_cond']} ms", flush=True)
+
+    # the families phase's checkpoints and config3's decode
+    def rand(shape, seed):
+        return torch.rand(shape, generator=torch.Generator(device=dev)
+                          .manual_seed(seed), device=dev)
+    net = RadialFlowNetwork(C4_LAYERS, C4_HWIN, device=dev)
+    mio.load_weights_into(os.path.join(fam_root, "models_radial", "e0.msgpack"),
+                          net)
+    program = export("radial", os.path.join(fam_root, "models_radial"),
+                     "--hw", str(C4_H), str(C4_W))
+    hold("radial", program, net.flow, (rand((C4_H, C4_W, 3), 14),
+                                       rand((C4_H, C4_W, 3), 15)))
+    with open(os.path.join(fam_root, "models_v2", "meta.json")) as f:
+        meta = json.load(f)
+    datap = V2Params(wImg=meta["wImg"], hImg=meta["hImg"],
+                     normalization_k=meta["normalization_k"],
+                     layers=tuple(tuple(l) for l in meta["layers"]),
+                     hWin=meta["hWin"], wWin=meta["wWin"])
+    v2 = V2Network(datap, device=dev)
+    mio.load_weights_into(os.path.join(fam_root, "models_v2", "e0"), v2)
+    program = export("version2", os.path.join(fam_root, "models_v2"))
+    x1, x2 = (x[0] for x in working_frames(16, 1, datap.hImg, datap.wImg, dev))
+    with torch.no_grad():
+        hold("version2", program, lambda x, y: serving._v2_decode(v2, x, y),
+             (x1, x2))
+    with open(os.path.join(fam_root, "legacy_model", "meta.json")) as f:
+        n_classes = json.load(f)["n_classes"]
+    cnn = DepthClassifierCNN(n_classes, device=dev)
+    mio.load_weights_into(os.path.join(fam_root, "legacy_model"), cnn)
+    program = export("legacy", os.path.join(fam_root, "legacy_model"),
+                     "--hw", str(LEG_H), str(LEG_W))
+    with torch.no_grad():
+        hold("legacy", program, lambda x: serving._class_map(cnn, x),
+             (rand((LEG_H, LEG_W, 2), 17),))
+    g3 = Geometry(**C3_GEOMETRY)
+    ms = MultiscaleFlowModel(g3, device=dev).init(torch.Generator().manual_seed(30))
+    mio.save_model(os.path.join(tmp.name, "config3"), g3, Learning(), ms)
+    program = export("config3", os.path.join(tmp.name, "config3"))
+    hold("config3", program, ms.decode_full,
+         tuple(x[0] for x in working_frames(6, 1, g3.hImg, g3.wImg, dev)))
+
+    # the CLIs, each exiting 0 and writing what it writes
+    seq = os.path.join(tmp.name, "seq")
+    write_frames(seq, forward_sequence(21, SERVE_STREAM_FRAMES))
+    clis = {}
+    for k in ("0", "3"):
+        rc, text = run_cli(tools.main, ["stream", CAR_MODEL, seq, "--pipeline",
+                                        k, "--device", str(dev)])
+        total = [l for l in text.splitlines() if l.startswith("total:")]
+        check(rc == 0 and total and f"{SERVE_STREAM_FRAMES - 1} frames" in total[0],
+              f"tools stream --pipeline {k}: {text[-500:]}")
+        clis[f"stream_pipeline_{k}"] = total[0]
+    rc, text = run_cli(tools.main, ["time-matching", "--iters", "10",
+                                    "--device", str(dev)])
+    check(rc == 0 and "filter+match+decode" in text, f"time-matching: {text}")
+    clis["time_matching"] = text.strip()
+    video = os.path.join(tmp.name, "video")
+    rc, text = run_cli(tools.main, ["video", CAR_MODEL, seq, "--num", "3",
+                                    "--output-dir", video, "--device", str(dev)])
+    pngs = sorted(f for f in os.listdir(video) if f.endswith(".png"))
+    check(rc == 0 and len(pngs) == 3, f"tools video: {text} {pngs}")
+    with open(os.path.join(video, pngs[-1]), "rb") as f:
+        shape = images.decode_png(f.read()).shape
+    check(shape == (3 * geom.hImg, 3 * geom.wImg, 3), f"video panel {shape}")
+    clis["video"] = text.strip()
+    radial_out = os.path.join(tmp.name, "radial_panels")
+    rc, text = run_cli(radial_cli.main, [
+        "-rd", os.path.join(fam_root, "radial"), "-cal", "gopro", "-net",
+        repr([list(l) if not isinstance(l, str) else l for l in C4_LAYERS]),
+        "-w", os.path.join(fam_root, "models_radial", "e0.msgpack"),
+        "-hwin", str(C4_HWIN), "-hi", str(C4_H), "-wi", str(C4_W), "-ni", "2",
+        "-o", radial_out, "--device", str(dev)])
+    panels = sorted(os.listdir(radial_out))
+    check(rc == 0 and panels, f"test_radial: {text} {panels}")
+    clis["test_radial"] = dict(panels=panels, timers=text.strip())
+    out["clis"] = clis
+    for name, line in clis.items():
+        print(f"[{card}] serving CLI {name}: {line}", flush=True)
+
+    out["launches"] = {"match_fused": b1.launches, "warp_banded": b3.launches}
+    tmp.cleanup()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"serving: launches on this path {out['launches']}; phase took "
+          f"{out['seconds']:.1f} s", flush=True)
+    report["serving"] = out
+    return out["launches"]
 
 
 def main() -> int:
@@ -2225,7 +2513,11 @@ def main() -> int:
     rows, bounds, b4_solve, floors = phase_timing(dev, card, ests, frames,
                                                   gt_frames, report)
     training = phase_training(dev, card, report)
-    family_counts = phase_families(dev, card, report)
+    fam_root = tempfile.TemporaryDirectory()
+    family_counts = phase_families(dev, card, fam_root.name, report)
+    serving_counts = phase_serving(dev, card, geom, params, ests, frames,
+                                   fam_root.name, report)
+    fam_root.cleanup()
 
     def entry(name, fn, src, replaces, row):
         return {"name": fn, "route": "cuda",
@@ -2293,6 +2585,9 @@ def main() -> int:
     for k, key in zip(kernels, ("match_fused", "warp_banded", "match_fast",
                                 "sor_redblack", "match_throughput")):
         k["launches_families_phase"] = family_counts[key]
+    # B1 and B3 from inside the loaded artifacts (and B1 under the CLIs)
+    for k, key in zip(kernels[:2], ("match_fused", "warp_banded")):
+        k["launches_serving_phase"] = serving_counts[key]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} not launched on its path")
     report["kernels"] = kernels

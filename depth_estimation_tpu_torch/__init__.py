@@ -17,6 +17,9 @@ built with nvcc at first use (``ops/_kernels.py``):
                                               <- csrc/match_throughput.cu (B5)
 
 Each has a plain PyTorch twin in the same module, used for CPU tensors.
+B1 and B3 are also the operators ``depth_estimation_tpu_torch::
+match_flow_fused`` and ``::banded_bilinear_warp`` (``torch.library``), so
+that ``torch.export`` keeps them in the serving artifacts (``serving.py``).
 
 Layer map of what is ported so far:
   geometry / codecs            static config + displacement index codecs
@@ -28,8 +31,9 @@ Layer map of what is ported so far:
                                training heads, the multiscale, radial,
                                version2 and legacy families, checkpoints
                                (read and write) and weight bridges
-  data/                        image files and resizes, flow ground truth,
-                               the flow trainer's frame-sequence datasets
+  data/                        image files and resizes, the live camera
+                               (V4L2), flow ground truth, the trainers'
+                               datasets
   training/                    SGD with torch-optim semantics, criteria,
                                patch and fovea samplers, the single-scale
                                and multiscale trainers, scores and curves
@@ -37,6 +41,12 @@ Layer map of what is ported so far:
   ops/                         matchers, banded warp, confidence masks,
                                post-processing filters, normalizations
   api / api_batched            the per-frame and the batched online programs
+  serving                      torch.export artifacts of every family and of
+                               the batched online program
+  cli/                         tools (rectify, download, stream, video,
+                               time-matching, export) and the radial tester
+  utils/                       device selection, timers, flow colourings,
+                               PNG / video files, the live viewer
 """
 
 __version__ = "0.1.0"

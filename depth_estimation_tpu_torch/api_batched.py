@@ -10,9 +10,10 @@ B1 on CUDA) -> warp-mask erosion -> confidence gate -> x-flow to depth.
 Compensation modes, as in the reference:
   * 'warp' — warp the previous features by K R K^-1 with unconditional
     4-tap semantics: the banded warp (kernel B3 on CUDA) when every in-frame
-    displacement is within ``warp_band``, the gather otherwise. Choosing
-    costs one device-to-host read per step (the reference decides on the
-    device with ``lax.cond``);
+    displacement is within ``warp_band``, the gather otherwise, chosen by
+    ``torch.cond`` as the reference chooses with ``lax.cond`` (so that
+    ``torch.export`` keeps both branches; run eagerly, the choice still
+    reads the predicate on the host once a step);
   * 'warp_banded' — the banded warp unconditionally, band-masked;
   * 'decode' — match the unwarped features and add the analytic rotation
     flow back to the decoded flow.

@@ -1,0 +1,125 @@
+"""Radial online tester CLI (port of ``depth_estimation_tpu.cli.test_radial``).
+
+The polar streaming loop, per frame: undistort -> ego-motion -> epipole
+with EMA smoothing (alpha 0.5; an epipole out of frame keeps the previous
+one) -> epipole-centered polar warp of the current and the
+rotation-compensated previous frame -> radial matcher -> WTA flow ->
+polar -> cartesian warp back -> flow2depth -> HSL colour panel written to
+disk; with ``-cmp`` also a panel of depth from a dense variational flow.
+Run as ``python -m depth_estimation_tpu_torch.cli.test_radial``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ast
+import os
+import sys
+
+import torch
+
+
+def build_parser():
+    p = argparse.ArgumentParser(description="Radial polar depth streaming")
+    p.add_argument("-net", "--network", default="[[3,5,5,10],'tanh',[10,5,5,10]]")
+    p.add_argument("-w", "--weights", default=None, help="msgpack weights")
+    p.add_argument("-hwin", "--h-win", type=int, default=15)
+    p.add_argument("-hi", "--h-input", type=int, default=200)
+    p.add_argument("-wi", "--w-input", type=int, default=200)
+    p.add_argument("-rd", "--root-directory", default="data/")
+    p.add_argument("-cal", "--calibration", default="gopro")
+    p.add_argument("-ni", "--num-images", type=int, default=10)
+    p.add_argument("-o", "--output-dir", default="radial_out")
+    p.add_argument("-ki", "--k-infty", type=float, default=1.0)
+    p.add_argument("-cmp", "--compare-dense", action="store_true",
+                   help="also render a dense-variational-flow depth panel "
+                        "per frame (the variational solver stands in for "
+                        "the original tester's OpenCV Farneback)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to run on (default cuda)")
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+
+    from ..data import datasets as ds_mod
+    from ..data import images as img_mod
+    from ..geometry3d import calibration as calmod
+    from ..geometry3d import polar as polar_ops
+    from ..models import io as mio
+    from ..models.radial import RadialFlowNetwork
+    from ..utils.device import resolve
+    from ..utils.timer import Timers
+    from ..utils.viz import save_image
+
+    dev = resolve(args.device)
+    layers = tuple(tuple(l) if isinstance(l, list) else l
+                   for l in ast.literal_eval(args.network))
+    net = RadialFlowNetwork(layers, args.h_win, device=dev)
+    net.init(torch.Generator().manual_seed(0))
+    if args.weights:
+        mio.load_weights_into(args.weights, net)
+
+    cal = calmod.PRESETS[args.calibration]
+    loader = img_mod.ImageLoader(args.root_directory, cal.hImg, cal.wImg)
+    os.makedirs(args.output_dir, exist_ok=True)
+    timers = Timers(sync_device=True)
+
+    prev = loader.get_next_frame()
+    e2_smooth = None
+    k = 0
+    while True:
+        img = loader.get_next_frame()
+        if img is None or k >= args.num_images:
+            break
+        timers.tic("pair")
+        pair = ds_mod.load_polar_pair(
+            cal, prev, img, args.h_input, args.w_input,
+            args.h_input, args.w_input, net.w_kernel, device=dev)
+        e2_smooth = ds_mod.smooth_epipole(e2_smooth, pair.e2,
+                                          args.h_input, args.w_input)
+        if pair.good:
+            flow, _ = net.flow(torch.as_tensor(pair.polar_prev_image, device=dev),
+                               torch.as_tensor(pair.polar_image, device=dev))
+            flow = flow.float()
+            # warp the flow back to cartesian space around the epipole
+            k_out = polar_ops.get_k_output(args.h_input, net.h_kernel,
+                                           args.h_win)
+            h_out = int(args.h_input * k_out)
+            w_out = int(args.w_input * k_out)
+            ex, ey = float(e2_smooth[0]) * k_out, float(e2_smooth[1]) * k_out
+            p2c = polar_ops.get_p2c_grid(
+                flow.shape[1], flow.shape[0], w_out, h_out, ex, ey,
+                rmax=polar_ops.get_rmax(args.h_input, args.w_input, e2_smooth)
+                * k_out, device=dev)
+            cart_flow = polar_ops.warp_grid(flow[..., None], p2c)[..., 0]
+            depth, confs = polar_ops.flow2depth(h_out, w_out, cart_flow,
+                                                (ex, ey), args.k_infty)
+            save_image(os.path.join(args.output_dir, f"{k:09d}.png"),
+                       polar_ops.depth2color(depth, confs))
+            if args.compare_dense:
+                # dense-flow baseline: flow magnitude -> depth panel
+                from ..flow import get_optical_flow
+                timers.tic("dense")
+                ps, cs = (img_mod.scale(torch.as_tensor(a, device=dev),
+                                        args.h_input, args.w_input)
+                          for a in (prev, img))
+                u, v = get_optical_flow(ps, cs, ratio=0.75, n_outer=3,
+                                        n_sor=20)
+                mag = torch.sqrt(u * u + v * v)
+                ddepth, dconfs = polar_ops.flow2depth(
+                    args.h_input, args.w_input, mag,
+                    (float(e2_smooth[0]), float(e2_smooth[1])), args.k_infty)
+                save_image(os.path.join(args.output_dir, f"{k:09d}_dense.png"),
+                           polar_ops.depth2color(ddepth, dconfs))
+                timers.toc("dense", mag)
+        timers.toc("pair", pair.polar_image)
+        prev = img
+        k += 1
+    print(timers.report())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

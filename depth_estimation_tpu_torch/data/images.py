@@ -1,10 +1,10 @@
-"""Image sources and conversions (port of ``depth_estimation_tpu.data.images``,
-without the live camera).
+"""Image sources and conversions (port of ``depth_estimation_tpu.data.images``).
 
   * ``load_image`` reads a frame file as (H, W, 3) float32 in [0, 1]. PNG
     is decoded here with the standard library's zlib (8-bit gray, gray +
     alpha, palette, RGB and RGBA, not interlaced, the five row filters),
     as PIL decodes it; JPEG goes through PIL, which a machine may lack.
+    ``encode_png`` writes 8-bit gray or RGB PNG the same way.
   * Resizing: ``jax.image.resize``'s bilinear method is an antialiased
     triangle kernel (stretched by the downscale factor, edge-clamped,
     normalized), which ``F.interpolate`` does not reproduce.
@@ -12,7 +12,9 @@ without the live camera).
     axis, and a resize is two matrix products with it: on the device
     (``scale``, ``scale_batched_device``) or on the host in numpy
     (``scale_np``, bit-equal to the JAX package's).
-  * ``ImageLoader`` walks a numbered ``images/%09d.{jpg,png}`` sequence.
+  * ``ImageLoader`` walks a numbered ``images/%09d.{jpg,png}`` sequence;
+    ``ImageCamera`` is the live source: V4L2 capture when given a device
+    path (``data/v4l2.py``), frames pushed by the caller otherwise.
 """
 
 from __future__ import annotations
@@ -116,6 +118,27 @@ def decode_png(data: bytes) -> np.ndarray:
     return np.ascontiguousarray(px[..., :3])
 
 
+def encode_png(img: np.ndarray) -> bytes:
+    """(H, W) or (H, W, 3) uint8 -> PNG bytes (8-bit gray or RGB,
+    unfiltered rows, zlib), the inverse of ``decode_png``."""
+    img = np.ascontiguousarray(img, np.uint8)
+    if img.ndim == 2:
+        ctype = 0
+    elif img.ndim == 3 and img.shape[2] == 3:
+        ctype = 2
+    else:
+        raise ValueError(f"image of shape {img.shape}: (H, W) or (H, W, 3)")
+    h, w = img.shape[:2]
+    raw = b"".join(b"\x00" + img[y].tobytes() for y in range(h))
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xffffffff))
+    return (_PNG_SIGNATURE
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+
+
 def load_image(path: str) -> np.ndarray:
     """Load an image file -> (H, W, 3) float32 in [0, 1] (channels-last).
     PNG is decoded here; other formats need PIL."""
@@ -157,7 +180,13 @@ def scale_batched_device(frames: torch.Tensor, h: int, w: int) -> torch.Tensor:
     H, W = frames.shape[1:3]
     if (H, W) == (h, w):
         return frames
-    R, C = _operators(H, h, W, w, str(frames.device))
+    if torch.compiler.is_compiling():
+        # a trace (torch.export) makes its own constants: a tensor it
+        # created must not enter the cache that eager calls read
+        R, C = (torch.from_numpy(a).to(frames.device)
+                for a in _np_operators(H, h, W, w))
+    else:
+        R, C = _operators(H, h, W, w, str(frames.device))
     t = torch.einsum("hH,bHWc->bhWc", R, frames)
     return torch.einsum("wW,bhWc->bhwc", C, t)
 
@@ -227,3 +256,51 @@ class ImageLoader:
         if img.shape[:2] != (self.h, self.w):
             img = scale_np(img, self.h, self.w)
         return img
+
+
+class ImageCamera:
+    """Live camera source: V4L2 capture at 640x480 (NTSC), one buffered
+    frame dropped before each read (latency flush), then a vertical center
+    crop to the target aspect ratio and a host resize to (h, w).
+
+    Pass ``device`` (e.g. "/dev/video0") for real capture (``data/v4l2.py``);
+    without a device, frames are given with ``push`` (the source the tests
+    and the simulator loop use)."""
+
+    def __init__(self, h: int, w: int, device: Optional[str] = None,
+                 capture_w: int = 640, capture_h: int = 480):
+        self.h, self.w = h, w
+        self._queue: list = []
+        self._cam = None
+        if device is not None:
+            from .v4l2 import V4L2Camera
+            self._cam = V4L2Camera(device, capture_w, capture_h)
+
+    def push(self, frame: np.ndarray) -> None:
+        self._queue.append(frame)
+
+    def _center_crop_aspect(self, frame: np.ndarray) -> np.ndarray:
+        """Crop rows so that the frame has the target aspect ratio."""
+        fh, fw = frame.shape[:2]
+        target_h = int(round(self.h * fw / self.w))
+        if target_h < fh:
+            top = (fh - target_h) // 2
+            frame = frame[top:top + target_h]
+        return frame
+
+    def get_next_frame(self) -> Optional[np.ndarray]:
+        if self._cam is not None:
+            self._cam.read()
+            img = self._center_crop_aspect(self._cam.read())
+        else:
+            if not self._queue:
+                return None
+            img = self._center_crop_aspect(self._queue.pop(0))
+        if img.shape[:2] != (self.h, self.w):
+            img = scale_np(img, self.h, self.w)
+        return img
+
+    def close(self) -> None:
+        if self._cam is not None:
+            self._cam.close()
+            self._cam = None

@@ -120,6 +120,16 @@ def _grid_select(score: torch.Tensor, max_points: int, quality: float):
     return torch.where(valid[..., None], pts, torch.zeros_like(pts)), valid
 
 
+def corner_count(max_points: int, H: int, W: int,
+                 selector: str = "topk") -> int:
+    """N, the number of corners ``good_features_to_track_batched`` returns
+    for (H, W) frames: the length of RANSAC's noise."""
+    if selector == "grid":
+        gh, gw = _grid_dims(max_points, H, W)
+        return gh * gw
+    return min(max_points, H * W)
+
+
 def good_features_to_track_batched(
     imgs: torch.Tensor, max_points: int, quality: float = 0.01,
     min_dist: int = 8, block: int = 5, selector: str = "topk",

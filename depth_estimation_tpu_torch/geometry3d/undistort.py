@@ -12,13 +12,16 @@ The compensation forms of the online program:
   * ``remove_ego_motion_banded`` — the banded warp (kernel B3 on CUDA,
     ``ops/warp.py``), exact within ``band`` and band-masked beyond;
   * ``remove_ego_motion_exact`` — the banded warp when every in-frame
-    displacement is in band, the gather otherwise. The reference branches
-    on the device with ``lax.cond``; here the predicate is read back to the
-    host, one device sync per call.
+    displacement is in band, the gather otherwise. Under a trace
+    (torch.export) the choice is ``torch.cond``, as the reference chooses
+    with ``lax.cond``, so the program keeps both branches; run eagerly it
+    is one read of the predicate back to the host (eager ``torch.cond``
+    reads it all the same, and adds Dynamo's guards).
 """
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import Tuple
 
 import torch
@@ -143,9 +146,28 @@ def remove_ego_motion_exact(imgs: torch.Tensor, K, R, band: int = 8,
     """The unconditional 4-tap warp: through the banded warp when
     ``warp_in_band`` holds for the whole batch (then it equals the gather on
     every pixel the validity mask keeps), through the gather otherwise.
-    Costs one device-to-host read of the predicate."""
+    Under a trace the choice is ``torch.cond`` on the 0-d predicate, as the
+    reference's ``lax.cond``, so that torch.export keeps both branches in
+    the program; run eagerly it costs one device-to-host read of the
+    predicate."""
     H, W = imgs.shape[1], imgs.shape[2]
     R = _as_f32(R, imgs.device)
-    if bool(warp_in_band(K, R, H, W, band)):
+    K = _as_f32(K, imgs.device)
+    pred = warp_in_band(K, R, H, W, band)
+    banded, gather = _exact_branches(band, dtype)
+    if torch.compiler.is_compiling():
+        return torch.cond(pred, banded, gather, (imgs, K, R))
+    return (banded if bool(pred) else gather)(imgs, K, R)
+
+
+@lru_cache(maxsize=None)
+def _exact_branches(band: int, dtype):
+    """The two branches of ``remove_ego_motion_exact``, made once per
+    (band, dtype) so that torch.cond meets the same functions each call."""
+    def banded(imgs, K, R):
         return remove_ego_motion_banded(imgs, K, R, band=band, dtype=dtype)
-    return remove_ego_motion_batched(imgs, K, R, dtype=dtype)
+
+    def gather(imgs, K, R):
+        return remove_ego_motion_batched(imgs, K, R, dtype=dtype)
+
+    return banded, gather

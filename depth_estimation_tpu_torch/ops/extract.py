@@ -1,4 +1,4 @@
-"""Confidence extraction and mask erosion (the online-program part of
+"""Confidence extraction, confidence masks and mask erosion (port of
 ``depth_estimation_tpu.ops.extract``).
 
 ``extract_output`` scans each pixel's distribution, keeps the first (in
@@ -35,12 +35,54 @@ def extract_output(dist: torch.Tensor, threshold: float = 0.11,
     return idx, score
 
 
+def extract_output_marginalized(
+    dist: torch.Tensor, threshold: float = 0.11, threshold_acc: float = 0.0,
+    max_highs: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The same scan as ``extract_output``, gated on the accumulated score:
+    (idx, good) with good = 1 (int32) where the rank-weighted score clears
+    ``threshold_acc``, else 0. The caller marginalizes the window
+    distribution first (sums over the x axis)."""
+    idx, score = extract_output(dist, threshold, max_highs)
+    return idx, (score >= threshold_acc).to(torch.int32)
+
+
 def confidences_from_marginal(marg: torch.Tensor,
                               threshold: float = 0.11) -> torch.Tensor:
     """Thresholded extraction on a y-marginal (..., maxh) -> bool (...):
     score > 0 (the 'mean' head's gate)."""
     _, score = extract_output(marg, threshold)
     return score > 0
+
+
+def mean_head_confidences(dist: torch.Tensor, maxh: int, maxw: int,
+                          threshold: float = 0.11) -> torch.Tensor:
+    """The 'mean' head's confidence gate: marginalize the window
+    distribution over x (a maxh-long y-marginal), run the thresholded
+    extraction on it, keep pixels with score > 0. dist (..., maxh*maxw) ->
+    bool (...)."""
+    marg = dist.reshape(dist.shape[:-1] + (maxh, maxw)).sum(dim=-1)
+    return confidences_from_marginal(marg, threshold)
+
+
+def middle_disc_mask(h: int, w: int, radius: float = 25.0,
+                     feather: float = 0.0, device="cpu") -> torch.Tensor:
+    """Mask out a disc around the image center, where forward-motion flow
+    vanishes and carries no depth signal, with optional linear feathering
+    (the offline video pipeline's maskmiddle). (h, w) f32 on ``device``."""
+    ii = torch.arange(h, dtype=torch.float32, device=device)[:, None] - h / 2
+    jj = torch.arange(w, dtype=torch.float32, device=device)[None, :] - w / 2
+    d = torch.sqrt(ii * ii + jj * jj)
+    if feather > 0:
+        return torch.clamp((d - radius) / feather, 0.0, 1.0)
+    return (d >= radius).float()
+
+
+def entropy_mask(dist: torch.Tensor, threshold: float) -> torch.Tensor:
+    """Uncertainty gate: False where the window distribution's entropy
+    exceeds ``threshold``. dist (..., D) softmax scores -> bool (...)."""
+    p = torch.clamp(dist, 1e-12, 1.0)
+    return -torch.sum(p * torch.log(p), dim=-1) <= threshold
 
 
 def enlarge_mask(mask: torch.Tensor, kh: int, kw: int) -> torch.Tensor:

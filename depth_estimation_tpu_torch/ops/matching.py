@@ -46,22 +46,18 @@ SMEM_LIMIT = 227 * 1024             # shared memory a block may use
 SMEM_PER_SM = 228 * 1024            # and an SM holds, 1 KB a block reserved
 
 
-def _ssd_k_order(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """sum_k (a - b)^2 over the last dim, accumulated in k order in f32."""
-    d = a.float() - b.float()
-    sq = d * d
-    acc = sq[..., 0]
-    for k in range(1, sq.shape[-1]):
-        acc = acc + sq[..., k]
-    return acc
-
-
 def match_ssd(f1: torch.Tensor, f2: torch.Tensor, maxh: int, maxw: int,
               dtype=None) -> torch.Tensor:
     """SSD cost volume. f1 (..., H, W, K) reference features (half-window
     cropped), f2 (..., H + maxh - 1, W + maxw - 1, K). ``dtype``: optional
     feature storage type (quantized once; the arithmetic stays f32).
-    Returns (..., H, W, maxh * maxw) f32, d = dy * maxw + dx."""
+    Returns (..., H, W, maxh * maxw) f32, d = dy * maxw + dx.
+
+    Each cell's sum runs over the channels in k order, in f32. The cells
+    are computed together, one channel at a time over f2's (maxh, maxw)
+    windows (an ``unfold`` view), so that the work is O(K) tensor ops
+    rather than O(maxh maxw K): every cost is the same sum in the same
+    order, bit for bit, and a traced program (torch.export) stays small."""
     H = f2.shape[-3] - maxh + 1
     W = f2.shape[-2] - maxw + 1
     if f1.shape[-3:-1] != (H, W):
@@ -69,9 +65,15 @@ def match_ssd(f1: torch.Tensor, f2: torch.Tensor, maxh: int, maxw: int,
                          f"not match a {maxh}x{maxw} window")
     if dtype is not None:
         f1, f2 = f1.to(dtype), f2.to(dtype)
-    costs = [_ssd_k_order(f1, f2[..., dy:dy + H, dx:dx + W, :])
-             for dy in range(maxh) for dx in range(maxw)]
-    return torch.stack(costs, dim=-1)
+    # (..., H, W, K, maxh, maxw): cell (dy, dx) of pixel (y, x) reads
+    # f2[y + dy, x + dx]
+    win = f2.unfold(-3, maxh, 1).unfold(-3, maxw, 1)
+    acc = None
+    for k in range(f1.shape[-1]):
+        d = f1[..., k, None, None].float() - win[..., k, :, :].float()
+        sq = d * d
+        acc = sq if acc is None else acc + sq
+    return acc.reshape(acc.shape[:-2] + (maxh * maxw,))
 
 
 def match_ssd_radial(f1: torch.Tensor, f2: torch.Tensor, hwin: int) -> torch.Tensor:
@@ -266,6 +268,51 @@ def _match_flow_fused_cuda(f1, f2, maxh, maxw, want_marg, dtype, want_conf,
     return tuple(outs)
 
 
+# B1 as the operator ``depth_estimation_tpu_torch::match_flow_fused``, so that
+# torch.export keeps it as one node of an exported program. The dispatcher
+# takes the implementation by the tensors' device: the kernel for CUDA
+# tensors, the plain twin for CPU tensors. Its schema is fixed: the fifth
+# output is the y-marginal (``want_marg``), the confidence gate
+# (``want_conf``) or an empty tensor.
+_FusedOut = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+                  torch.Tensor]
+
+
+def _with_extra(outs, like: torch.Tensor) -> _FusedOut:
+    if len(outs) == 5:
+        return tuple(outs)
+    return tuple(outs) + (torch.empty(0, device=like.device),)
+
+
+@torch.library.custom_op("depth_estimation_tpu_torch::match_flow_fused",
+                         mutates_args=(), device_types="cpu")
+def match_flow_fused_op(f1: torch.Tensor, f2: torch.Tensor, maxh: int,
+                        maxw: int, want_marg: bool, bf16: bool,
+                        want_conf: bool, conf_threshold: float) -> _FusedOut:
+    """B1 on (B, H, W, K) / (B, H + maxh - 1, W + maxw - 1, K) features:
+    (idx, ey, ex, pmax, extra); ``bf16`` selects bf16 feature storage."""
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    return _with_extra(match_flow_fused_plain(
+        f1, f2, maxh, maxw, want_marg, dtype, want_conf, conf_threshold), f1)
+
+
+@match_flow_fused_op.register_kernel("cuda")
+def _(f1, f2, maxh, maxw, want_marg, bf16, want_conf, conf_threshold):
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    return _with_extra(_match_flow_fused_cuda(
+        f1, f2, maxh, maxw, want_marg, dtype, want_conf, conf_threshold), f1)
+
+
+@match_flow_fused_op.register_fake
+def _(f1, f2, maxh, maxw, want_marg, bf16, want_conf, conf_threshold):
+    B, H, W = f1.shape[:3]
+    extra = ((B, maxh, H, W) if want_marg else (B, H, W) if want_conf
+             else (0,))
+    return (f1.new_empty((B, H, W), dtype=torch.int32),
+            *(f1.new_empty((B, H, W), dtype=torch.float32) for _ in range(3)),
+            f1.new_empty(extra, dtype=torch.float32))
+
+
 def match_flow_fused(
     f1: torch.Tensor, f2: torch.Tensor, maxh: int, maxw: int,
     block_rows: int = 8, want_marg: bool = False, dtype=torch.float32,
@@ -281,13 +328,16 @@ def match_flow_fused(
     conf_threshold). The two are mutually exclusive. ``dtype`` is the
     feature storage type (f32 or bf16); accumulation is f32.
     ``block_rows`` is accepted for signature parity with the reference and
-    has no effect. CUDA tensors go through kernel B1 (counted in
-    ``match_flow_fused.launches``) on ``fused_plan``: every window, and K up
-    to FUSED_MAX_CHANNELS (227, where one window cell's f2 halo fills
-    shared memory; the package's configurations use K <= 32), beyond which
-    it raises RuntimeError. CPU tensors go through the plain version."""
+    has no effect. The work is the operator ``match_flow_fused_op``: CUDA
+    tensors go through kernel B1 (counted in ``match_flow_fused.launches``)
+    on ``fused_plan``: every window, and K up to FUSED_MAX_CHANNELS (227,
+    where one window cell's f2 halo fills shared memory; the package's
+    configurations use K <= 32), beyond which it raises RuntimeError. CPU
+    tensors go through the plain version."""
     if want_marg and want_conf:
         raise ValueError("want_marg and want_conf are mutually exclusive")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"dtype {dtype}: f32 or bf16 storage")
     squeeze = f1.ndim == 3
     if squeeze:
         f1, f2 = f1[None], f2[None]
@@ -298,12 +348,10 @@ def match_flow_fused(
             or f2.shape[3] != f1.shape[3]:
         raise ValueError(f"shapes {tuple(f1.shape)} / {tuple(f2.shape)} do "
                          f"not match a {maxh}x{maxw} window")
-    if f1.is_cuda:
-        outs = _match_flow_fused_cuda(f1, f2, maxh, maxw, want_marg, dtype,
-                                      want_conf, conf_threshold)
-    else:
-        outs = match_flow_fused_plain(f1, f2, maxh, maxw, want_marg, dtype,
-                                      want_conf, conf_threshold)
+    outs = match_flow_fused_op(f1, f2, maxh, maxw, want_marg,
+                               dtype == torch.bfloat16, want_conf,
+                               float(conf_threshold))
+    outs = outs if want_marg or want_conf else outs[:4]
     if squeeze:
         outs = tuple(a[0] for a in outs)
     return outs

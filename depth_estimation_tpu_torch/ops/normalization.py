@@ -38,16 +38,24 @@ def _sep_conv_same(x: torch.Tensor, f: np.ndarray) -> torch.Tensor:
     return out2
 
 
+def _channel_sum(x: torch.Tensor, f: np.ndarray) -> torch.Tensor:
+    """sum_c _sep_conv_same(x[..., c], f) for x (..., H, W, C): every
+    channel convolved at once (the same taps in the same order on each),
+    then summed in c order."""
+    conv = _sep_conv_same(x.movedim(-1, -3), f)          # (..., C, H, W)
+    acc = conv[..., 0, :, :]
+    for c in range(1, conv.shape[-3]):
+        acc = acc + conv[..., c, :, :]
+    return acc
+
+
 def _local_mean(img: torch.Tensor, f: np.ndarray):
     """The border-renormalization map and the cross-channel local mean of
     img (..., H, W, C) under the normalized window f."""
     C = img.shape[-1]
     ones = torch.ones(img.shape[-3:-1], dtype=img.dtype, device=img.device)
     coef = torch.clamp(_sep_conv_same(ones, f) * C, min=1e-8)
-    local_sum = _sep_conv_same(img[..., 0], f)
-    for c in range(1, C):
-        local_sum = local_sum + _sep_conv_same(img[..., c], f)
-    return coef, local_sum / coef
+    return coef, _channel_sum(img, f) / coef
 
 
 def _window(k: int, C: int) -> np.ndarray:
@@ -63,9 +71,7 @@ def spatial_contrastive_normalization(img: torch.Tensor, k: int = 17) -> torch.T
     coef, mean = _local_mean(img, f)
     v = img - mean[..., None]
     sq = v * v
-    local_var = _sep_conv_same(sq[..., 0], f)
-    for c in range(1, C):
-        local_var = local_var + _sep_conv_same(sq[..., c], f)
+    local_var = _channel_sum(sq, f)
     local_std = torch.sqrt(torch.clamp(local_var / coef, min=0.0))
     thresh = torch.maximum(local_std, local_std.mean(dim=(-2, -1), keepdim=True))
     thresh = torch.clamp(thresh, min=1e-4)

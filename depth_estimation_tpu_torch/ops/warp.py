@@ -57,19 +57,9 @@ def banded_bilinear_warp_plain(imgs: torch.Tensor, xs: torch.Tensor,
     return ys_t[0][2][..., None] * rows[0] + ys_t[1][2][..., None] * rows[1]
 
 
-def banded_bilinear_warp(imgs: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
-                         band: int = 8, block_rows: int = 16) -> torch.Tensor:
-    """imgs (B, H, W, C) channels-last f32 or bf16; xs, ys (B, H, W) sample
-    coordinates. Returns (B, H, W, C) f32. CUDA tensors go through the
-    kernel (counted in ``banded_bilinear_warp.launches``), CPU tensors
-    through ``banded_bilinear_warp_plain``. ``block_rows`` is accepted for
-    signature parity with the reference and has no effect."""
-    if imgs.ndim != 4 or tuple(xs.shape) != tuple(imgs.shape[:3]) \
-            or tuple(ys.shape) != tuple(imgs.shape[:3]):
-        raise ValueError(f"shapes {tuple(imgs.shape)} / {tuple(xs.shape)} / "
-                         f"{tuple(ys.shape)}")
-    if not imgs.is_cuda:
-        return banded_bilinear_warp_plain(imgs, xs, ys, band)
+def _banded_bilinear_warp_cuda(imgs: torch.Tensor, xs: torch.Tensor,
+                               ys: torch.Tensor, band: int) -> torch.Tensor:
+    """Kernel B3 on CUDA tensors."""
     imgs = imgs.contiguous()
     xs = xs.float().contiguous()
     ys = ys.float().contiguous()
@@ -87,6 +77,43 @@ def banded_bilinear_warp(imgs: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
                  int(imgs.dtype == torch.bfloat16))
     banded_bilinear_warp.launches += 1
     return out
+
+
+# B3 as the operator ``depth_estimation_tpu_torch::banded_bilinear_warp``, so
+# that torch.export keeps it as one node of an exported program: the kernel
+# for CUDA tensors, the plain twin for CPU tensors, chosen by the dispatcher.
+@torch.library.custom_op("depth_estimation_tpu_torch::banded_bilinear_warp",
+                         mutates_args=(), device_types="cpu")
+def banded_bilinear_warp_op(imgs: torch.Tensor, xs: torch.Tensor,
+                            ys: torch.Tensor, band: int) -> torch.Tensor:
+    """B3 on imgs (B, H, W, C) f32 or bf16 and xs, ys (B, H, W):
+    (B, H, W, C) f32."""
+    return banded_bilinear_warp_plain(imgs, xs, ys, band)
+
+
+@banded_bilinear_warp_op.register_kernel("cuda")
+def _(imgs, xs, ys, band):
+    return _banded_bilinear_warp_cuda(imgs, xs, ys, band)
+
+
+@banded_bilinear_warp_op.register_fake
+def _(imgs, xs, ys, band):
+    return imgs.new_empty(imgs.shape, dtype=torch.float32)
+
+
+def banded_bilinear_warp(imgs: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
+                         band: int = 8, block_rows: int = 16) -> torch.Tensor:
+    """imgs (B, H, W, C) channels-last f32 or bf16; xs, ys (B, H, W) sample
+    coordinates. Returns (B, H, W, C) f32. The work is the operator
+    ``banded_bilinear_warp_op``: CUDA tensors go through the kernel
+    (counted in ``banded_bilinear_warp.launches``), CPU tensors through
+    ``banded_bilinear_warp_plain``. ``block_rows`` is accepted for
+    signature parity with the reference and has no effect."""
+    if imgs.ndim != 4 or tuple(xs.shape) != tuple(imgs.shape[:3]) \
+            or tuple(ys.shape) != tuple(imgs.shape[:3]):
+        raise ValueError(f"shapes {tuple(imgs.shape)} / {tuple(xs.shape)} / "
+                         f"{tuple(ys.shape)}")
+    return banded_bilinear_warp_op(imgs, xs, ys, int(band))
 
 
 banded_bilinear_warp.launches = 0

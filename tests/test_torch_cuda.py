@@ -19,7 +19,9 @@ probe in every mode; B1's two pixels a thread at widths that cut a
 thread's pair and at images smaller than one tile. The training slice
 has no kernel of its own: its trainers (3 criteria, and the multiscale
 trainer) are held card vs CPU, and the 'liu' GT of a pair loader is held
-to launch B4. Every test skips without a CUDA card. This file imports no jax, so it also runs where
+to launch B4. B1 and B3 pass ``torch.library.opcheck`` as operators on
+CUDA tensors, and a loaded flow-forward artifact launches B1 once a call
+and equals the live forward. Every test skips without a CUDA card. This file imports no jax, so it also runs where
 jax is absent:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -633,3 +635,45 @@ def test_liu_ground_truth_of_a_pair_launches_b4(dev):
     assert sor_kernel.sor_redblack.launches > n0
     assert pair.good and pair.flow.shape == (2, 48, 64)
     assert np.isfinite(pair.flow).all()
+
+
+# ---------------------------------------------------------------------------
+# B1 and B3 as operators, and inside a loaded artifact
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mode", ["plain", "marg", "conf", "bf16"])
+def test_match_fused_operator_passes_opcheck_on_the_card(dev, mode):
+    f1, f2 = _features(dev, 13, 37, 10, 5, 3, seed=77)
+    torch.library.opcheck(matching.match_flow_fused_op,
+                          (f1, f2, 5, 3, mode == "marg", mode == "bf16",
+                           mode == "conf", 0.11))
+
+
+def test_banded_warp_operator_passes_opcheck_on_the_card(dev):
+    g = torch.Generator(device=dev).manual_seed(78)
+    imgs = torch.randn(2, 21, 35, 3, generator=g, device=dev)
+    ys = torch.arange(21.0, device=dev)[:, None] + 2 * torch.randn(
+        2, 21, 35, generator=g, device=dev)
+    xs = torch.arange(35.0, device=dev) + 2 * torch.randn(
+        2, 21, 35, generator=g, device=dev)
+    torch.library.opcheck(warp.banded_bilinear_warp_op, (imgs, xs, ys, 3))
+
+
+def test_flow_forward_artifact_launches_b1_on_the_card(dev, tmp_path):
+    from depth_estimation_tpu_torch import serving
+    from depth_estimation_tpu_torch.geometry import Geometry
+    from depth_estimation_tpu_torch.models import io as mio
+    from depth_estimation_tpu_torch.models.flow import FlowModel
+    g = Geometry(hImg=32, wImg=40, layers=((3, 5, 5, 6),), maxh=4, maxw=4)
+    m = FlowModel(g, device=dev).init(torch.Generator().manual_seed(0))
+    path = str(tmp_path / "fwd.pt2")
+    serving.export_flow_forward(g, mio.model_tree(m), path, device=dev)
+    program = serving.load_exported(path).module()
+    a, b = (torch.rand(32, 40, 3, generator=torch.Generator(device=dev)
+                       .manual_seed(s), device=dev) for s in (1, 2))
+    n = matching.match_flow_fused.launches
+    got = program(a, b)
+    torch.cuda.synchronize()
+    assert matching.match_flow_fused.launches == n + 1
+    for x, y in zip(got, m.forward_fused(a, b)):
+        assert torch.equal(x, y)

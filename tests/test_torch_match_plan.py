@@ -402,8 +402,10 @@ def _fused_general(f1, f2, maxh, maxw, plan):
     halfh1, halfw1 = math.ceil(maxh / 2) - 1, math.ceil(maxw / 2) - 1
     mid = _middle(maxh, maxw)
 
+    costs = matching.match_ssd(a, b, maxh, maxw)   # each cell in k order
+
     def logit(dy, dx):
-        return -matching._ssd_k_order(a, b[:, dy:dy + H, dx:dx + W])
+        return -costs[..., dy * maxw + dx]
 
     bm = torch.full((B, H, W), NEG_INF)
     bi = torch.zeros((B, H, W), dtype=torch.int32)

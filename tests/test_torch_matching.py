@@ -223,3 +223,44 @@ def test_fast_plain_large_magnitude_features():
                                      maxw, 8, True)
     for a, b in zip(fast[1:], jref[1:]):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-3)
+
+
+def _match_ssd_per_cell(f1, f2, maxh, maxw, dtype=None):
+    """match_ssd one window cell at a time, each cell's channels summed in
+    k order: the form the port had before it computed the cells together."""
+    Hc, Wc = f2.shape[-3] - maxh + 1, f2.shape[-2] - maxw + 1
+    if dtype is not None:
+        f1, f2 = f1.to(dtype), f2.to(dtype)
+    cells = []
+    for dy in range(maxh):
+        for dx in range(maxw):
+            d = f1.float() - f2[..., dy:dy + Hc, dx:dx + Wc, :].float()
+            sq = d * d
+            acc = sq[..., 0]
+            for k in range(1, sq.shape[-1]):
+                acc = acc + sq[..., k]
+            cells.append(acc)
+    return torch.stack(cells, dim=-1)
+
+
+@pytest.mark.parametrize("lead,maxh,maxw,Kc,dt", [
+    ((2,), 6, 7, 5, None), ((), 4, 4, 1, None), ((3, 2), 5, 3, 10, torch.bfloat16),
+    ((), 15, 1, 10, None), ((1,), 17, 17, 32, None)])
+def test_match_ssd_equals_the_per_cell_loop(lead, maxh, maxw, Kc, dt):
+    """The cost volume is bit-equal to the per-cell loop (the same sums in
+    the same order); its gradients only re-associate their sums over the
+    cells: within 1e-6 of their largest value in f32."""
+    g = torch.Generator().manual_seed(maxh * 100 + Kc)
+    f1 = torch.randn(*lead, 9, 11, Kc, generator=g, requires_grad=True)
+    f2 = torch.randn(*lead, 9 + maxh - 1, 11 + maxw - 1, Kc, generator=g,
+                     requires_grad=True)
+    ours = tmatching.match_ssd(f1, f2, maxh, maxw, dt)
+    ref = _match_ssd_per_cell(f1, f2, maxh, maxw, dt)
+    assert torch.equal(ours, ref)
+    if dt is not None:
+        return
+    w = torch.randn(ours.shape, generator=g)
+    ga = torch.autograd.grad((ours * w).sum(), (f1, f2))
+    gb = torch.autograd.grad((ref * w).sum(), (f1, f2))
+    for a, b in zip(ga, gb):
+        assert (a - b).abs().max() <= 1e-6 * b.abs().max()

@@ -147,3 +147,34 @@ def test_model_families_default_to_the_card_and_refuse_the_cpu(monkeypatch,
     out = make(device="cpu")
     t = out if isinstance(out, torch.Tensor) else next(out.parameters())
     assert t.device.type == "cpu"
+
+
+def _local_mean_per_channel(img, f):
+    """The cross-channel local mean one channel's convolution at a time:
+    the form the port had before it convolved the channels together."""
+    from depth_estimation_tpu_torch.ops import normalization as tnorm
+    C = img.shape[-1]
+    ones = torch.ones(img.shape[-3:-1], dtype=img.dtype)
+    coef = torch.clamp(tnorm._sep_conv_same(ones, f) * C, min=1e-8)
+    acc = tnorm._sep_conv_same(img[..., 0], f)
+    for c in range(1, C):
+        acc = acc + tnorm._sep_conv_same(img[..., c], f)
+    return acc / coef
+
+
+@pytest.mark.parametrize("shape", [(2, 20, 24, 50), (18, 22, 3),
+                                   (4, 2, 16, 16, 2)])
+def test_local_mean_equals_the_per_channel_loop(shape):
+    """The channels convolved together give the per-channel loop's bits,
+    and so do their gradients (each channel's taps run in the same order;
+    the channel sum is the same chain of adds)."""
+    from depth_estimation_tpu_torch.ops import normalization as tnorm
+    g = torch.Generator().manual_seed(len(shape))
+    x = torch.randn(*shape, generator=g, requires_grad=True)
+    f = tnorm._window(15, shape[-1])
+    ours = tnorm._local_mean(x, f)[1]
+    ref = _local_mean_per_channel(x, f)
+    assert torch.equal(ours, ref)
+    w = torch.randn(ours.shape, generator=g)
+    assert torch.equal(torch.autograd.grad((ours * w).sum(), x)[0],
+                       torch.autograd.grad((ref * w).sum(), x)[0])
