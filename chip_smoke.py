@@ -100,7 +100,25 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      and the CLIs: `tools stream` (synchronous and --pipeline 3) over a
      640x480 PNG sequence, `time-matching`, `video` on 3 frames and
      `test_radial` on the radial checkpoint, each exiting 0 and writing
-     what it writes.
+     what it writes;
+ 14. the training CLIs and the real-drone loop, B1's and B4's counts
+     zeroed before each and read after: `opticalflow` at car_model's
+     trunk and window (ARDRONE 640x480 PNG frames of the training phase's
+     seed -> 320x180; cross-correlation, then '-gt liu' with B4 launched
+     for every GT pair, then '--resume -e 2'), `train_radial` ('gopro',
+     200x200 polar, hWin 15), `train_v2` ('rectified_gopro_small') and
+     `depth_estimation` (360x640, then '-lw ... -i') over the families
+     phase's sequences, each through its main(argv) at its default
+     widths, one epoch, exiting 0 with its checkpoint loaded back; then
+     `robotics`: FifoDroneAPI over os.mkfifo pipes with a peer thread
+     playing the drone's SDK (navdata with a forward velocity in, control
+     records read back), the per-frame DepthEstimator on car_model fed by
+     an ImageCamera pushed a forward-camera sequence, AvoidanceController
+     over DepthMap(64, 128, 100, 0.9, 320) for 30 ticks (B1 once a tick,
+     the peer receiving every control), the depth rule on the card equal
+     to the CPU's on the same x-flow and mask and timed, and the
+     simulator's avoidance run (seed 11, a pillar ahead) advancing
+     without a collision.
 
 The build's registers and spills are printed for every kernel.
 
@@ -114,7 +132,8 @@ library_ms, both also 10 calls back to back, and its bf16 times and
 bound; B4 also with its dependency
 floor and its device time over a solve; B1 and B4 also their launches
 on the training phase; each its launches on the families' phase; B1
-and B3 their launches on the serving phase), the card, and {"ok": true,
+and B3 their launches on the serving phase; B1 and B4 their launches on
+the training CLIs and on the drone loop), the card, and {"ok": true,
 "device": {...}}. A longer report goes to
 chiprun_out/chip_smoke_report.json.
 """
@@ -122,6 +141,7 @@ chiprun_out/chip_smoke_report.json.
 import gc
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2469,6 +2489,274 @@ def phase_serving(dev, card, geom, params, ests, frames, fam_root, report):
     report["serving"] = out
     return out["launches"]
 
+# ---------------------------------------------------------------------------
+# phase 14: the training CLIs and the real-drone loop
+# ---------------------------------------------------------------------------
+
+# opticalflow at car_model's trunk and window (the CLI's 180x320 geometry)
+OF_CAR = ["-nl", "2", "-k1s", "5", "-s2", "8", "-s2c", "8", "-k2s", "12",
+          "-nf", "10", "-ws", "16", "-gtws", "16", "-cal", "ardrone"]
+ROBOT_TICKS = 30
+ROBOT_ZOOM = (1.01, 1.02)     # top / bottom plane zoom a frame (<= 3 px)
+ROBOT_VELOCITY = (2.0, 0.0, 0.0)
+
+
+def kernel_counters():
+    from depth_estimation_tpu_torch.flow import sor_kernel
+    from depth_estimation_tpu_torch.ops import matching
+    return {"match_fused": matching.match_flow_fused,
+            "sor_redblack": sor_kernel.sor_redblack}
+
+
+def phase_training_clis(dev, card, fam_root, report):
+    """Phase 14a: the four training CLIs through their ``main(argv)`` on the
+    card at their default widths, one epoch each, over the training
+    phase's forward-camera sequence (made again from its seed) and the
+    families phase's sequences under ``fam_root``: opticalflow at car
+    width (cross-correlation, then '-gt liu' with B4's launches counted,
+    then '--resume -e 2'), train_radial ('gopro', 200x200 polar, hWin 15),
+    train_v2 ('rectified_gopro_small'), depth_estimation (360x640, then
+    '-lw ... -i'). Each exits 0 and its checkpoint loads back. B1's and
+    B4's counts are zeroed before and read after. Returns them."""
+    from depth_estimation_tpu_torch.cli import (depth_estimation,
+                                                opticalflow, train_radial,
+                                                train_v2)
+    from depth_estimation_tpu_torch.data import depth_legacy
+    from depth_estimation_tpu_torch.geometry3d.calibration import ARDRONE
+    from depth_estimation_tpu_torch.models import io as mio
+    from depth_estimation_tpu_torch.models.radial import RadialFlowNetwork
+    from depth_estimation_tpu_torch.models.version2 import V2Network, V2Params
+    from depth_estimation_tpu_torch.training import families
+    t_phase = time.perf_counter()
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    tmp = tempfile.TemporaryDirectory()
+    seq = os.path.join(tmp.name, "seq")
+    write_frames(seq, forward_sequence(21, TRAIN_FRAMES, ARDRONE.hImg,
+                                       ARDRONE.wImg))
+    out = {"seconds": {}}
+    dev_flag = ["--device", str(dev)]
+
+    def run(name, main, argv):
+        t0 = time.perf_counter()
+        rc, text = run_cli(main, argv + dev_flag)
+        torch.cuda.synchronize()
+        out["seconds"][name] = time.perf_counter() - t0
+        check(rc == 0, f"{name}: exit {rc}: {text[-800:]}")
+        last = [l for l in text.splitlines() if l.startswith("epoch")]
+        print(f"[{card}] CLI {name}: {out['seconds'][name]:.1f} s; "
+              f"{last[-1] if last else text.strip().splitlines()[-1]}",
+              flush=True)
+        return text
+
+    # opticalflow: cross-correlation, liu (B4), then --resume
+    of_argv = OF_CAR + ["-rd", seq, "-ni", str(TRAIN_FRAMES), "-e", "1"]
+    for gt in ("cross-correlation", "liu"):
+        n4 = counters["sor_redblack"].launches
+        run(f"opticalflow_{gt}", opticalflow.main,
+            of_argv + ["-gt", gt, "-omd", os.path.join(tmp.name, gt)])
+        b4 = counters["sor_redblack"].launches - n4
+        out[f"opticalflow_{gt}_b4"] = b4
+        if gt == "liu":
+            check(b4 >= TRAIN_FRAMES - 1, f"opticalflow -gt liu: B4 launched "
+                  f"{b4} times for {TRAIN_FRAMES - 1} GT pairs")
+        (name,) = os.listdir(os.path.join(tmp.name, gt))
+        ckpt = os.path.join(tmp.name, gt, name)
+        g, _, _, meta = mio.load_model(ckpt)
+        mio.load_filter(ckpt, device=dev)
+        check(len(meta["score"]) == 1 and g.hImg == 180,
+              f"opticalflow {gt} checkpoint: {meta['score']}")
+    run("opticalflow_resume", opticalflow.main,
+        of_argv + ["-gt", "cross-correlation", "-omd",
+                   os.path.join(tmp.name, "cross-correlation"), "--resume",
+                   "-e", "2"])
+    (name,) = os.listdir(os.path.join(tmp.name, "cross-correlation"))
+    g, _, _, meta = mio.load_model(os.path.join(tmp.name,
+                                                "cross-correlation", name))
+    check([s["epoch"] for s in meta["score"]] == [0, 1],
+          f"opticalflow --resume: {meta['score']}")
+
+    # train_radial at its defaults ('gopro', 200x200, hWin 15, n 1000)
+    omd = os.path.join(tmp.name, "models_radial")
+    run("train_radial", train_radial.main,
+        ["-rd", fam_root, "-ds", "radial", "-ni", str(FAM_FRAMES), "-e", "1",
+         "-omd", omd])
+    with open(os.path.join(omd, "meta.json")) as f:
+        meta = json.load(f)
+    net = RadialFlowNetwork([l if isinstance(l, str) else tuple(l)
+                             for l in meta["layers"]], meta["hWin"], device=dev)
+    mio.load_weights_into(os.path.join(omd, "e0.msgpack"), net)
+
+    # train_v2 at its defaults ('rectified_gopro_small', 17x17x32), on the
+    # families phase's frames without its GT cache: the cache is keyed by
+    # frame name, and that phase rectified under another RANSAC draw
+    v2_seq = os.path.join(tmp.name, "v2")
+    shutil.copytree(os.path.join(fam_root, "v2", "images"),
+                    os.path.join(v2_seq, "images"))
+    omd = os.path.join(tmp.name, "models_v2")
+    run("train_v2", train_v2.main,
+        ["-rd", v2_seq, "-ni", str(FAM_FRAMES), "-e", "1", "-omd", omd])
+    with open(os.path.join(omd, "meta.json")) as f:
+        meta = json.load(f)
+    v2 = V2Network(V2Params(wImg=meta["wImg"], hImg=meta["hImg"],
+                            normalization_k=meta["normalization_k"],
+                            layers=tuple(tuple(l) for l in meta["layers"]),
+                            hWin=meta["hWin"], wWin=meta["wWin"]), device=dev)
+    mio.load_weights_into(os.path.join(omd, "e0"), v2)
+
+    # depth_estimation at 360x640, then -lw with -i
+    legacy = os.path.join(fam_root, "legacy")
+    o = os.path.join(tmp.name, "legacy_model")
+    base = ["-rd", legacy, "-d", "1", "-ni", str(FAM_FRAMES)]
+    run("depth_estimation", depth_estimation.main, base + ["-e", "1", "-o", o])
+    families.DepthClassifierTrainer.load(o, device=dev)
+    first = int(depth_legacy.load_raw_depth_data(legacy)[0]["name"])
+    run("depth_estimation_lw", depth_estimation.main,
+        base + ["-lw", o, "-i", str(first), "-o", o])
+    z = np.load(os.path.join(o, f"depth_classes_{first:09d}.npz"))
+    check(z["classes"].ndim == 2 and os.path.exists(
+        os.path.join(o, f"depth_classes_{first:09d}.png")),
+        "depth_estimation -i: class map")
+
+    out["launches"] = {k: fn.launches for k, fn in counters.items()}
+    tmp.cleanup()
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    print(f"training CLIs: seconds {json.dumps(out['seconds'])}; launches on "
+          f"this path {out['launches']}; phase took "
+          f"{out['phase_seconds']:.1f} s", flush=True)
+    report["training_clis"] = out
+    return out["launches"]
+
+
+def robot_peer(ctrl, nav, received, ready):
+    """The drone SDK's side of the FIFO link: the control pipe's read end
+    first (the API opens its write end first, blocking), then the navdata
+    write end; one navdata record with a forward velocity, then every
+    control record until the API closes the link."""
+    from depth_estimation_tpu_torch.robotics import runtime
+    with open(ctrl, "rb") as f, open(nav, "wb") as nav_w:
+        nav_w.write(runtime.encode_navdata(1, 90.0, [0, 0, 0], 100.0,
+                                           list(ROBOT_VELOCITY)))
+        nav_w.flush()
+        ready.set()
+        while True:
+            rec = f.read(runtime.CONTROL_RECORD_LEN)
+            if len(rec) < runtime.CONTROL_RECORD_LEN:
+                return
+            received.append(rec)
+
+
+def phase_robotics(dev, card, geom, params, report):
+    """Phase 14b: the real-drone loop on the card. ``FifoDroneAPI`` over
+    ``os.mkfifo`` pipes with a peer thread playing the SDK, the per-frame
+    ``DepthEstimator`` with car_model (ARDRONE 640x480 -> 320x180, 16x16
+    window) fed by an ``ImageCamera`` pushed a forward-camera sequence,
+    ``AvoidanceController`` over ``DepthMap(64, 128, 100, 0.9, 320)`` for
+    ROBOT_TICKS ticks; B1 once a tick; the depth rule on the card against
+    the CPU on the same x-flow and mask; the simulator's avoidance run
+    (seed 11, a pillar ahead). B1's and B4's counts are zeroed before the
+    loop and read after. Returns them."""
+    import threading
+    from depth_estimation_tpu_torch import api
+    from depth_estimation_tpu_torch.data.images import ImageCamera
+    from depth_estimation_tpu_torch.geometry3d.calibration import ARDRONE
+    from depth_estimation_tpu_torch.robotics import control, drone_api, runtime
+    t_phase = time.perf_counter()
+    out = {}
+    t0 = time.perf_counter()
+    runtime.load_library()
+    out["native_build_s"] = time.perf_counter() - t0
+    frames = zoom_sequence(41, ROBOT_TICKS + 2, ARDRONE.hImg, ARDRONE.wImg,
+                           *ROBOT_ZOOM)
+    est = api.DepthEstimator(geom, params, ARDRONE, device=dev)
+    est.reset(frames[0])
+    camera = ImageCamera(ARDRONE.hImg, ARDRONE.wImg)
+    for f in frames[1:ROBOT_TICKS + 1]:
+        camera.push(f)
+    tmp = tempfile.TemporaryDirectory()
+    ctrl, nav = (os.path.join(tmp.name, k) for k in ("control", "navdata"))
+    os.mkfifo(ctrl)
+    os.mkfifo(nav)
+    received, ready = [], threading.Event()
+    peer = threading.Thread(target=robot_peer,
+                            args=(ctrl, nav, received, ready), daemon=True)
+    peer.start()
+    link = drone_api.FifoDroneAPI(ctrl, nav, est, camera, device=dev)
+    check(ready.wait(30), "robot peer: no navdata")
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    ticks = []
+    try:
+        link.takeoff()
+        ctl = control.AvoidanceController(
+            link, runtime.DepthMap(64, 128, 100.0, 0.9, 320.0), fov=32)
+        for _ in range(ROBOT_TICKS):
+            t0 = time.perf_counter()
+            ctl.step()
+            ticks.append(time.perf_counter() - t0)
+        counts = {k: fn.launches for k, fn in counters.items()}
+        depth, conf = link.get_depth_map(), link.get_confidence_map()
+        pos = link.position().tolist()
+    finally:
+        link.close()
+        peer.join(30)
+    tmp.cleanup()
+    check(not peer.is_alive(), "robot peer still running")
+    kinds = [runtime.decode_control(r)[0] for r in received]
+    out.update(launches=counts, tick_ms=[t * 1e3 for t in ticks],
+               tick_median_ms=statistics.median(ticks) * 1e3,
+               controls=len(received), position=pos,
+               conf_share=float(conf.mean()),
+               near_share=float(((depth > 0) & (depth < 100)).mean()))
+    check(counts["match_fused"] == ROBOT_TICKS,
+          f"robot loop: B1 launched {counts['match_fused']} times in "
+          f"{ROBOT_TICKS} ticks")
+    check(kinds == ["T"] + ["C"] * ROBOT_TICKS,
+          f"robot peer received {len(received)} records: {kinds[:5]}...")
+    check(depth.shape == (geom.hImg, geom.wImg) and out["conf_share"] > 0.05,
+          f"robot loop: depth {depth.shape}, confident {out['conf_share']}")
+
+    # the depth rule on the card against the CPU, one more frame's flow
+    _, xflow, mask = est.next_frame_depth(frames[ROBOT_TICKS + 1],
+                                          fetch=False)
+    m = float(ROBOT_VELOCITY[0] * 0.05)
+    got = drone_api.compute_depth_map_from_flow(xflow, mask, m)
+    want = drone_api.compute_depth_map_from_flow(xflow.cpu(), mask.cpu(), m)
+    out["depth_rule_equal"] = all(torch.equal(a.cpu(), b)
+                                  for a, b in zip(got, want))
+    out["depth_rule_ms"] = cuda_ms(
+        lambda: drone_api.compute_depth_map_from_flow(xflow, mask, m))
+    check(out["depth_rule_equal"], "depth rule: card != CPU")
+
+    # the simulator's avoidance run: a pillar dead ahead, seed 11
+    sim = runtime.SimulatedAPI(320, 240, fixed_dt=0.05, seed=11,
+                               default_course=False)
+    sim.add_obstacle(8.0, 0.0, 0.0, 1.5)
+    sim.takeoff()
+    traj = control.AvoidanceController(
+        sim, runtime.DepthMap(64, 128, 100.0, 0.9, 320.0), fov=32).run(150)
+    out["sim_final_x"] = float(traj[-1, 0])
+    out["sim_min_pillar_distance"] = float(
+        np.hypot(traj[:, 0] - 8.0, traj[:, 1]).min())
+    check(out["sim_final_x"] > 4.0 and out["sim_min_pillar_distance"] > 1.5,
+          f"simulator avoidance: {out}")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[{card}] robot loop: {ROBOT_TICKS} ticks, median tick "
+          f"{out['tick_median_ms']:.2f} ms (first {out['tick_ms'][0]:.1f} ms), "
+          f"launches {counts}, the peer received {len(received)} records, "
+          f"position {[round(p, 3) for p in pos]}, confident share "
+          f"{out['conf_share']:.3f}; depth rule on the card "
+          f"{out['depth_rule_ms']:.3f} ms, equal to the CPU's "
+          f"{out['depth_rule_equal']}; native build "
+          f"{out['native_build_s']:.1f} s; simulator avoidance x "
+          f"{out['sim_final_x']:.2f}, closest to the pillar "
+          f"{out['sim_min_pillar_distance']:.2f}; phase took "
+          f"{out['seconds']:.1f} s", flush=True)
+    report["robotics"] = out
+    return counts
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2517,7 +2805,9 @@ def main() -> int:
     family_counts = phase_families(dev, card, fam_root.name, report)
     serving_counts = phase_serving(dev, card, geom, params, ests, frames,
                                    fam_root.name, report)
+    cli_counts = phase_training_clis(dev, card, fam_root.name, report)
     fam_root.cleanup()
+    robot_counts = phase_robotics(dev, card, geom, params, report)
 
     def entry(name, fn, src, replaces, row):
         return {"name": fn, "route": "cuda",
@@ -2588,6 +2878,12 @@ def main() -> int:
     # B1 and B3 from inside the loaded artifacts (and B1 under the CLIs)
     for k, key in zip(kernels[:2], ("match_fused", "warp_banded")):
         k["launches_serving_phase"] = serving_counts[key]
+    # phase 14: the training CLIs (B4 through '-gt liu') and the drone loop
+    for name, key in (("match_flow_fused", "match_fused"),
+                      ("sor_redblack", "sor_redblack")):
+        next(k for k in kernels if k["name"] == name).update(
+            launches_cli_phase=cli_counts[key],
+            launches_robotics_phase=robot_counts[key])
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} not launched on its path")
     report["kernels"] = kernels

@@ -21,7 +21,8 @@ B1 and B3 are also the operators ``depth_estimation_tpu_torch::
 match_flow_fused`` and ``::banded_bilinear_warp`` (``torch.library``), so
 that ``torch.export`` keeps them in the serving artifacts (``serving.py``).
 
-Layer map of what is ported so far:
+Layer map (every module of the JAX package has its counterpart here, or
+a recorded decision not to port it, ROADMAP A.16):
   geometry / codecs            static config + displacement index codecs
   geometry3d/                  calibration, undistortion + rotation warps,
                                Shi-Tomasi + windowed and full-image LK +
@@ -44,7 +45,16 @@ Layer map of what is ported so far:
   serving                      torch.export artifacts of every family and of
                                the batched online program
   cli/                         tools (rectify, download, stream, video,
-                               time-matching, export) and the radial tester
+                               time-matching, export), the radial tester,
+                               and the training CLIs (opticalflow,
+                               train_radial, train_v2, depth_estimation)
+  robotics/                    the native drone runtime (its own copy of
+                               the C++ in robotics/native/, built with g++
+                               at first use into _build/: simulator, depth
+                               maps, FIFO link), the real-drone adapter
+                               (FifoDroneAPI: the estimator and the depth
+                               rule on the card), the avoidance controller
+                               and keyboard teleop
   utils/                       device selection, timers, flow colourings,
                                PNG / video files, the live viewer
 """

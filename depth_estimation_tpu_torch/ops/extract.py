@@ -15,6 +15,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..utils.device import resolve
+
 
 def extract_output(dist: torch.Tensor, threshold: float = 0.11,
                    max_highs: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -66,10 +68,13 @@ def mean_head_confidences(dist: torch.Tensor, maxh: int, maxw: int,
 
 
 def middle_disc_mask(h: int, w: int, radius: float = 25.0,
-                     feather: float = 0.0, device="cpu") -> torch.Tensor:
+                     feather: float = 0.0, device="cuda") -> torch.Tensor:
     """Mask out a disc around the image center, where forward-motion flow
     vanishes and carries no depth signal, with optional linear feathering
-    (the offline video pipeline's maskmiddle). (h, w) f32 on ``device``."""
+    (the offline video pipeline's maskmiddle). (h, w) f32 on ``device``
+    (the card by default; raises where there is none unless given
+    ``device="cpu"``)."""
+    device = resolve(device)
     ii = torch.arange(h, dtype=torch.float32, device=device)[:, None] - h / 2
     jj = torch.arange(w, dtype=torch.float32, device=device)[None, :] - w / 2
     d = torch.sqrt(ii * ii + jj * jj)

@@ -37,7 +37,9 @@ from depth_estimation_tpu.flow.celiu import bilinear_sample, gaussian_smooth
 from depth_estimation_tpu.geometry3d import calibration as jcal
 from depth_estimation_tpu.models.radial import RadialFlowNetwork as JRadial
 from depth_estimation_tpu.ops import extract as jextract
-from depth_estimation_tpu_torch.cli import test_radial, tools
+from depth_estimation_tpu_torch.cli import (depth_estimation, opticalflow,
+                                            test_radial, tools, train_radial,
+                                            train_v2)
 from depth_estimation_tpu_torch.data import images as timages
 from depth_estimation_tpu_torch.geometry import Geometry, Learning
 from depth_estimation_tpu_torch.geometry3d import calibration as tcal
@@ -45,6 +47,7 @@ from depth_estimation_tpu_torch.geometry3d import egomotion as tego
 from depth_estimation_tpu_torch.models import io as tio
 from depth_estimation_tpu_torch.models.flow import FlowModel
 from depth_estimation_tpu_torch.ops import extract as textract
+from depth_estimation_tpu_torch.robotics import drone_api
 from torch_parity import ransac_noise
 
 REPO_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
@@ -207,6 +210,14 @@ def test_entry_points_default_to_the_card(flow_case):
         tools.main(["export", mdir, "--out", os.devnull])
     with pytest.raises(RuntimeError, match="cuda"):
         test_radial.main(["-rd", seq, "-cal", "t64x80", "-ni", "1"])
+    for main in (opticalflow.main, train_radial.main, train_v2.main,
+                 depth_estimation.main):
+        with pytest.raises(RuntimeError, match="cuda"):
+            main(["-rd", seq])
+    with pytest.raises(RuntimeError, match="cuda"):
+        drone_api.FifoDroneAPI(os.devnull, "")
+    with pytest.raises(RuntimeError, match="cuda"):
+        textract.middle_disc_mask(8, 8)
 
 
 def test_time_wrappers_needs_a_card(capsys):
@@ -323,5 +334,6 @@ def test_extract_output_marginalized_matches_jax(dists, thr, acc):
 @pytest.mark.parametrize("feather", [0.0, 4.0])
 def test_middle_disc_mask_matches_jax(feather):
     np.testing.assert_array_equal(
-        textract.middle_disc_mask(45, 61, 12.5, feather).numpy(),
+        textract.middle_disc_mask(45, 61, 12.5, feather,
+                                  device="cpu").numpy(),
         np.asarray(jextract.middle_disc_mask(45, 61, 12.5, feather)))

@@ -4,14 +4,18 @@ trunk weights and frames made from numpy seeds."""
 
 import dataclasses
 
+import flax.serialization
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
+import torch
 
 from depth_estimation_tpu.geometry import Geometry as JGeometry
 from depth_estimation_tpu.geometry3d import calibration as jcal
 from depth_estimation_tpu_torch.geometry import Geometry as TGeometry
 from depth_estimation_tpu_torch.geometry3d import calibration as tcal
+from depth_estimation_tpu_torch.models import io as tio
 
 LAYERS = ((3, 5, 5, 8),)
 
@@ -143,3 +147,49 @@ def run_batched_both(case, share_state=False, **knobs):
         b = [np.asarray(x) for x in ref.next_frames(jnp.asarray(f))]
         out.append((a, b))
     return out
+
+
+# ---------------------------------------------------------------------------
+# the CLI parity tests (test_torch_cli_*.py, test_torch_robotics_loop.py)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch intra-op thread for a module that imports this fixture:
+    the test run puts six workers on the CPU's cores, and torch's pool of
+    a thread a core in each then oversubscribes them (the CLI files ran
+    4-15x slower there than alone, and as fast alone on one thread)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def start_from(monkeypatch, cls, tree):
+    """The port trainer's ``init`` loads the JAX CLI's initial tree."""
+    def init(self, generator):
+        tio.load_tree_into(self.model, jax.tree.map(np.asarray, tree))
+        return self.reset_optimizer()
+    monkeypatch.setattr(cls, "init", init)
+
+
+def record(monkeypatch, mod, name, into):
+    fn = getattr(mod, name)
+
+    def wrapped(*a, **k):
+        into.append(fn(*a, **k))
+        return into[-1]
+    monkeypatch.setattr(mod, name, wrapped)
+
+
+def assert_trees_close(ours, ref, atol):
+    assert (jax.tree_util.tree_structure(jax.tree.map(np.asarray, ours))
+            == jax.tree_util.tree_structure(jax.tree.map(np.asarray, ref)))
+    for a, b in zip(jax.tree.leaves(ours), jax.tree.leaves(ref)):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=0,
+                                   atol=atol)
+
+
+def read_weights(path, template):
+    with open(path, "rb") as f:
+        return flax.serialization.from_bytes(template, f.read())
