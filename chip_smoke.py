@@ -118,7 +118,27 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      the peer receiving every control), the depth rule on the card equal
      to the CPU's on the same x-flow and mask and timed, and the
      simulator's avoidance run (seed 11, a pillar ahead) advancing
-     without a collision.
+     without a collision;
+ 15. the peak meter and the roofline: kernels P1 (8 FMA chains, 8 expf
+     chains) and P2 (1, 2, 4 and 8 logistic chains at full occupancy and
+     at 4 warps an SM) against their plain twins on random values at the
+     element counts the meter and the sweep launch them at, 3
+     iterations; then, P1's and P2's counts zeroed before and read after,
+     the meter (benchmarks/device_peaks: FP32 FMA and expf through P1,
+     bf16 and f32 matrix products, the HBM stream, the gather's index
+     rate; each the best of 3 timings of >= 100 ms, with the SM clock and
+     power draw under it) inside capture_trace and profiled_span (the
+     Chrome trace must name the span and P1's kernel; kept gzipped under
+     chiprun_out/trace_peaks/), and P2's sweep (with the SM clock and
+     power draw under each of its rows); the `peaks` JSON line; then the
+     roofline
+     (benchmarks/speed_of_light: B1 bf16 and f32, B2, B5, B3 f32 and
+     bf16, B4, the celiu packed-tap warp and the conv trunk, each 10 calls
+     back to back at its main path's shapes, against the measured and the
+     published peaks), the `roofline` JSON line, and the contract
+     (speed_of_light.contract_failures): every ceiling and every rate of
+     P2's sweep within 105% of its published peak, no row above 100% of
+     the measured ceiling.
 
 The build's registers and spills are printed for every kernel.
 
@@ -133,12 +153,17 @@ bound; B4 also with its dependency
 floor and its device time over a solve; B1 and B4 also their launches
 on the training phase; each its launches on the families' phase; B1
 and B3 their launches on the serving phase; B1 and B4 their launches on
-the training CLIs and on the drone loop), the card, and {"ok": true,
-"device": {...}}. A longer report goes to
+the training CLIs and on the drone loop; P1 and P2 their launches in
+the meter and the sweep, their error against the twins, their ms a
+launch in the meter, the kernel's and the twin's at the check, their
+bound from the
+launch's operations at the published rate, and the rate they measured),
+the card, and {"ok": true, "device": {...}}. A longer report goes to
 chiprun_out/chip_smoke_report.json.
 """
 
 import gc
+import gzip
 import json
 import os
 import shutil
@@ -150,6 +175,12 @@ import time
 
 import numpy as np
 import torch
+
+from depth_estimation_tpu_torch.benchmarks.device_peaks import (
+    card_line, sm_clock_under)
+from depth_estimation_tpu_torch.benchmarks.speed_of_light import (
+    CLOCK_HZ, PEAK_BYTES, PEAK_SFU, bound_ms, matcher_bound, sor_planes,
+    sor_work, warp_work)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CAR_MODEL = os.path.join(ROOT, "examples", "car_model")
@@ -261,32 +292,6 @@ RAD_ZOOM = (1.003, 1.008)   # top / bottom plane zoom a frame (flow <= 6 px)
 LEG_H, LEG_W, LEG_N, LEG_M, LEG_CLASSES = 360, 640, 2000, 500, 2
 # B4's dependency floor: the no-arithmetic probe's half-sweeps a timing
 PROBE_HALF_SWEEPS = 400
-# H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, FP32 FLOP/s outside
-# the tensor cores
-PEAK_BYTES = 3.35e12
-PEAK_FP32 = 67e12
-CLOCK_HZ = 1.98e9           # the SM boost clock, for issue floors
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
-def sm_clock_under(fn, n):
-    """nvidia-smi's SM clock (MHz) and power draw (W), read while n calls of
-    fn queued back to back run on the card."""
-    for _ in range(int(n)):
-        fn()
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
-         "--format=csv,noheader,nounits"], capture_output=True, text=True,
-        check=True)
-    torch.cuda.synchronize()
-    mhz, watts = out.stdout.strip().splitlines()[0].split(",")
-    return {"clocks.sm": float(mhz), "power.draw": float(watts)}
 
 
 def cuda_ms(fn, reps=5, warmup=1) -> float:
@@ -534,22 +539,6 @@ def phase_general_shapes(dev, report):
         worst["match_throughput"] = max(worst["match_throughput"], e)
     report["general_shapes"] = rows
     return worst
-
-
-def sor_planes(gen, B, H, W, dev):
-    """Random well-conditioned SOR planes as the solver builds them: zero
-    boundary weights, denominators above the weights' sum."""
-    from depth_estimation_tpu_torch.flow import celiu
-
-    def rnd():
-        return torch.rand(B, H, W, generator=gen, device=dev)
-    alpha = 0.3
-    w = celiu._neighbor_weights(rnd() + 0.1)
-    coeff = alpha * (w[0] + w[1] + w[2] + w[3])
-    return (*w, rnd() + 0.5 + coeff, rnd() + 0.5 + coeff,
-            torch.randn(B, H, W, generator=gen, device=dev),
-            torch.randn(B, H, W, generator=gen, device=dev),
-            (rnd() - 0.5) * 0.1), alpha
 
 
 def phase_slice(dev, geom, params, report):
@@ -1162,24 +1151,6 @@ def sass_per_cell(lib, stem, dt, dx_major, kc, rx, ry):
                                                key=lambda kv: -kv[1]))
 
 
-def bound_ms(nbytes, flops):
-    """The least time the card could take: the larger of the bytes over the
-    HBM rate and the FP32 operations over the FP32 peak. Returns (ms, 'bytes'
-    or 'operations')."""
-    tb, to = nbytes / PEAK_BYTES, flops / PEAK_FP32
-    return 1e3 * max(tb, to), ("bytes" if tb >= to else "operations")
-
-
-def matcher_bound(f1, f2, maxh, maxw, n_out, flops_per_cell, extra_bytes=0):
-    """A fused matcher's bound: f1 and f2 (and ``extra_bytes`` of other
-    inputs) read once, n_out (B, H, W) 4-byte outputs written once;
-    flops_per_cell per pixel and window cell."""
-    B, H, W, _ = f1.shape
-    nbytes = (f1.numel() * f1.element_size() + f2.numel() * f2.element_size()
-              + n_out * B * H * W * 4 + extra_bytes)
-    return bound_ms(nbytes, B * H * W * maxh * maxw * flops_per_cell)
-
-
 def b4_over_solve(im1, im2):
     """B4 over one config2 solve, level by level: the device time of its
     launches (torch.profiler, in launch order, coarsest level first) and
@@ -1387,16 +1358,11 @@ def phase_timing(dev, card, ests, frames, gt_frames, report):
         "match_fast": matcher_bound(f1.to(torch.bfloat16), f2.to(torch.bfloat16),
                                     16, 16, 4, 2 * 10 + 3 + 7),
         "match_throughput": matcher_bound(f1, f2, 16, 16, 4, 2 * 10 + 3 + 7),
-        # the image read once in its storage type, the coordinates, the
-        # f32 output written once
-        "warp_banded": bound_ms(
-            imgs.numel() * 4 + xs.numel() * 4 + ys.numel() * 4
-            + imgs.numel() * 4, imgs.numel() * 7),
-        "warp_banded_bfloat16": bound_ms(
-            imgs.numel() * 2 + xs.numel() * 4 + ys.numel() * 4
-            + imgs.numel() * 4, imgs.numel() * 7),
-        "sor_redblack": bound_ms(11 * planes[0].numel() * 4,
-                                 planes[0].numel() * 40 * 30),
+        "warp_banded": bound_ms(*warp_work(imgs, xs, ys)),
+        "warp_banded_bfloat16": bound_ms(*warp_work(
+            torch.empty(imgs.shape, dtype=torch.bfloat16, device="meta"),
+            xs, ys)),
+        "sor_redblack": bound_ms(*sor_work(planes, 40)),
     }
     for name, (b, by) in bounds.items():
         print(f"bound {name}: {b:.4f} ms ({by})", flush=True)
@@ -2758,6 +2724,159 @@ def phase_robotics(dev, card, geom, params, report):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the peak meter (kernel P1), P2's sweep and the roofline
+# ---------------------------------------------------------------------------
+
+VPU_CHECK_ITERS = 3     # at the meter's and the sweep's element counts
+# P1 and P2 against their twins: the kernel's FFMA rounds c - c*c once
+# where the twin rounds the product and then the difference, and CUDA's
+# expf and torch's exp may part by an ulp; both maps contract on the
+# values they see, (0, 1), so the iterates part by a few ulp of values
+# below 1 (6e-8 each) and do not grow
+TOL_VPU = 1e-6
+TRACE_DIR = os.path.join(ROOT, "chiprun_out", "trace_peaks")
+
+
+def phase_peaks(dev, card, report):
+    """P1 (FMA, exp) and P2 (1, 2, 4, 8 chains, full occupancy and 4 warps
+    an SM) against their twins on random values at the element counts the
+    meter and the sweep launch them at, for a few iterations; then the peak meter under
+    capture_trace and profiled_span, and P2's sweep, with their counts
+    zeroed before and read after; the ceilings against the published
+    peaks; the roofline rows. Returns the kernels line's P1 and P2 entries."""
+    from depth_estimation_tpu_torch.benchmarks import device_peaks as dp
+    from depth_estimation_tpu_torch.benchmarks import probe_vpu_peak
+    from depth_estimation_tpu_torch.benchmarks import speed_of_light as sol
+    from depth_estimation_tpu_torch.utils.timer import (
+        TRACE_FILE, capture_trace, profiled_span)
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(15)
+    xs = {op: 0.05 + 0.9 * torch.rand(dp.SIZES["cuda"][op][0],
+                                      generator=gen, device=dev)
+          for op in ("fma", "exp", "p2")}
+    it = VPU_CHECK_ITERS
+    cases = [("p1_fma", xs["fma"], lambda x: dp.vpu_loop(x, "fma", it),
+              lambda x: dp.chains_fma_plain(x, 8, 16, it, True)),
+             ("p1_exp", xs["exp"], lambda x: dp.vpu_loop(x, "exp", it),
+              lambda x: dp.chains_exp_plain(x, 8, 4, it, True))]
+    for c in probe_vpu_peak.CHAINS:
+        for w in probe_vpu_peak.WARPS:
+            cases.append((f"p2_{c}_chains_{w}_warps", xs["p2"],
+                          lambda x, c=c, w=w: dp.logistic_loop(x, c, it, w),
+                          lambda x, c=c: dp.chains_fma_plain(
+                              x, c, dp.P2_STEPS // c, it, False)))
+    checks = {}
+    for name, x, kernel, plain in cases:
+        got, ref = kernel(x), plain(x)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        check(bool(torch.isfinite(got).all()), f"{name} non-finite")
+        check(err <= TOL_VPU, f"{name} error {err}")
+        checks[name] = dict(max_abs_err=err, n=x.numel(), n_iter=it,
+                            ms_check=cuda_ms(lambda: kernel(x)),
+                            plain_ms=cuda_ms(lambda: plain(x)))
+        del got, ref
+        print(f"{name}: max err {err:.2e} against the twin at {x.numel()} "
+              f"values x {it} iterations; kernel "
+              f"{checks[name]['ms_check']:.3f} ms, plain "
+              f"{checks[name]['plain_ms']:.3f} ms", flush=True)
+    del xs
+    # the meter and the sweep at full size, the kernels' counts read around
+    dp.vpu_loop.launches = 0
+    dp.logistic_loop.launches = 0
+    shutil.rmtree(TRACE_DIR, ignore_errors=True)
+    with capture_trace(TRACE_DIR) as started:
+        with profiled_span("device_peaks"):
+            peaks = dp.measure_peaks(dev)
+    sweep = probe_vpu_peak.probe(dev)
+    launches = dict(vpu_loop=dp.vpu_loop.launches,
+                    logistic_loop=dp.logistic_loop.launches)
+    check(started, "capture_trace did not start the profiler")
+    trace_path = os.path.join(TRACE_DIR, TRACE_FILE)
+    with open(trace_path) as f:
+        trace = f.read()
+    check('"device_peaks"' in trace and "chains_kernel" in trace,
+          "the trace names neither the span nor P1's kernel")
+    with open(trace_path, "rb") as f, gzip.open(trace_path + ".gz", "wb") as g:
+        shutil.copyfileobj(f, g)
+    os.remove(trace_path)
+    print(f"trace of the meter: {len(trace) / 1e6:.1f} MB of Chrome trace, "
+          f"names the span and P1's kernel; kept as {trace_path}.gz",
+          flush=True)
+    probes = peaks["probes"]
+    line = {"card": card, "kind": peaks["kind"], "torch": peaks["torch"],
+            "tf32": peaks["tf32"]}
+    for key in ("vpu_fma_f32_gflops", "vpu_exp_gops", "tc_bf16_tflops",
+                "matmul_f32_tflops", "hbm_stream_gbps", "gather_idx_gops"):
+        line[key] = dict(rate=peaks[key], ms=probes[key]["ms"],
+                         published=sol.PUBLISHED.get(key),
+                         share_of_published=(peaks[key] / sol.PUBLISHED[key]
+                                             if key in sol.PUBLISHED else None),
+                         **probes[key]["clock_under_load"])
+    line["p2_sweep"] = {
+        w: {c: {"gflops": r["gflops"], **r.get("clock_under_load", {})}
+            for c, r in rows.items()}
+        for w, rows in sweep["warps_an_sm"].items()}
+    print(json.dumps({"peaks": line}), flush=True)
+    rows = sol.report(peaks, dev)
+    print(json.dumps({"roofline": rows}), flush=True)
+    for r in rows:
+        print(f"[{card}] roofline {r['kernel']}: {r['measured_ms']:.4f} ms a "
+              f"call back to back; {r['pct_sol']:.1f}% of the measured "
+              f"ceiling ({r['bound']}), {r['pct_sol_published']:.1f}% of the "
+              f"published ({r['bound_published']})", flush=True)
+    failures = sol.contract_failures(peaks, rows, sweep)
+    check(not failures, f"speed-of-light contract broken: {failures}")
+    fp32_pub = sol.PUBLISHED["vpu_fma_f32_gflops"]
+    # the kernels line's entries: ms a launch of the meter's; the kernel's
+    # and the twin's ms at the check's size; the bound of the meter's
+    # launch (each value read and written once; its operations at the
+    # published rate)
+    n_fma, n_exp, n_p2 = (dp.SIZES["cuda"][k][0] for k in ("fma", "exp", "p2"))
+    fma, exp = probes["vpu_fma_f32_gflops"], probes["vpu_exp_gops"]
+    s8 = sweep["warps_an_sm"][dp.FULL_WARPS][8]
+    p1_bound = bound_ms(8 * n_fma, fma["work"])
+    p2_bound = bound_ms(8 * n_p2, n_p2 * s8["n_iter"] * dp.P2_OPS[8])
+    p2_check = checks[f"p2_8_chains_{dp.FULL_WARPS}_warps"]
+    src = "depth_estimation_tpu_torch/csrc/vpu_peak.cu"
+    p1 = {"name": "vpu_loop", "route": "cuda", "source": src,
+          "replaces": "benchmarks/device_peaks.py:164",
+          "launches": launches["vpu_loop"],
+          "max_abs_err": max(checks["p1_fma"]["max_abs_err"],
+                             checks["p1_exp"]["max_abs_err"]),
+          "ms": fma["ms"], "plain_ms": checks["p1_fma"]["plain_ms"],
+          "bound_ms": p1_bound[0], "bound_by": p1_bound[1], "library_ms": None,
+          "ms_check": checks["p1_fma"]["ms_check"],
+          "rate_gflops": peaks["vpu_fma_f32_gflops"],
+          "share_of_published": peaks["vpu_fma_f32_gflops"] / fp32_pub,
+          "exp": {"ms": exp["ms"], "plain_ms": checks["p1_exp"]["plain_ms"],
+                  "ms_check": checks["p1_exp"]["ms_check"],
+                  "bound_ms": 1e3 * max(8 * n_exp / PEAK_BYTES,
+                                        exp["work"] / PEAK_SFU),
+                  "rate_gops": peaks["vpu_exp_gops"],
+                  "share_of_published": peaks["vpu_exp_gops"]
+                  / sol.PUBLISHED["vpu_exp_gops"]}}
+    p2 = {"name": "logistic_loop", "route": "cuda", "source": src,
+          "replaces": "benchmarks/probe_vpu_peak.py:36",
+          "launches": launches["logistic_loop"],
+          "max_abs_err": max(v["max_abs_err"] for k, v in checks.items()
+                             if k.startswith("p2_")),
+          "ms": s8["ms"], "plain_ms": p2_check["plain_ms"],
+          "bound_ms": p2_bound[0], "bound_by": p2_bound[1], "library_ms": None,
+          "ms_check": p2_check["ms_check"],
+          "rate_gflops": s8["gflops"],
+          "share_of_published": s8["gflops"] / fp32_pub,
+          "sweep": line["p2_sweep"]}
+    seconds = time.perf_counter() - t_phase
+    print(f"peaks: P1 {launches['vpu_loop']} launches, P2 "
+          f"{launches['logistic_loop']} on this path; phase took "
+          f"{seconds:.1f} s", flush=True)
+    report["peaks"] = dict(peaks=peaks, sweep=sweep, checks=checks,
+                           launches=launches, roofline=rows, seconds=seconds)
+    return p1, p2
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check "
@@ -2808,6 +2927,7 @@ def main() -> int:
     cli_counts = phase_training_clis(dev, card, fam_root.name, report)
     fam_root.cleanup()
     robot_counts = phase_robotics(dev, card, geom, params, report)
+    p1, p2 = phase_peaks(dev, card, report)
 
     def entry(name, fn, src, replaces, row):
         return {"name": fn, "route": "cuda",
@@ -2884,6 +3004,7 @@ def main() -> int:
         next(k for k in kernels if k["name"] == name).update(
             launches_cli_phase=cli_counts[key],
             launches_robotics_phase=robot_counts[key])
+    kernels += [p1, p2]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} not launched on its path")
     report["kernels"] = kernels

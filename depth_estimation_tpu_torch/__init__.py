@@ -15,6 +15,8 @@ built with nvcc at first use (``ops/_kernels.py``):
   flow/sor_kernel.sor_redblack                <- csrc/sor_redblack.cu (B4)
   ops/matching_experimental.match_flow_throughput
                                               <- csrc/match_throughput.cu (B5)
+  benchmarks/device_peaks.vpu_loop            <- csrc/vpu_peak.cu (P1)
+  benchmarks/device_peaks.logistic_loop       <- csrc/vpu_peak.cu (P2)
 
 Each has a plain PyTorch twin in the same module, used for CPU tensors.
 B1 and B3 are also the operators ``depth_estimation_tpu_torch::
@@ -55,8 +57,12 @@ a recorded decision not to port it, ROADMAP A.16):
                                (FifoDroneAPI: the estimator and the depth
                                rule on the card), the avoidance controller
                                and keyboard teleop
-  utils/                       device selection, timers, flow colourings,
-                               PNG / video files, the live viewer
+  benchmarks/                  the peak meter (P1, P2) and the
+                               speed-of-light report, with the bound
+                               formulas of PERF.md's kernel table
+  utils/                       device selection, timers, profiler spans
+                               and traces, flow colourings, PNG / video
+                               files, the live viewer
 """
 
 __version__ = "0.1.0"

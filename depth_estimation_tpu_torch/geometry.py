@@ -131,3 +131,12 @@ class Learning:
     soft_targets: bool = False
     st_sigma2: float = 1.0
     batch_size: int = 32
+
+
+def default_geometry(**overrides) -> Geometry:
+    """The reference's canonical single-scale config (the field defaults:
+    180x320, one (3, 16, 16, 10) layer, a 16x16 window) with ``overrides``,
+    validated."""
+    g = Geometry(**overrides)
+    g.validate()
+    return g

@@ -65,6 +65,10 @@ SIGNATURES = {
         # ty_n, band_h, band_w, stream
         "match_throughput_launch": [_P] * 6 + [_I] * 12 + [_P],
     },
+    "vpu_peak": {
+        # x, out, n, n_iter, variant, threads, blocks_per_sm, stream
+        "vpu_peak_launch": [_P, _P] + [_I] * 5 + [_P],
+    },
 }
 SOURCES = tuple(f"{stem}.cu" for stem in SIGNATURES)
 

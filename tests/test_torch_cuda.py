@@ -21,7 +21,10 @@ has no kernel of its own: its trainers (3 criteria, and the multiscale
 trainer) are held card vs CPU, and the 'liu' GT of a pair loader is held
 to launch B4. B1 and B3 pass ``torch.library.opcheck`` as operators on
 CUDA tensors, and a loaded flow-forward artifact launches B1 once a call
-and equals the live forward. Every test skips without a CUDA card. This file imports no jax, so it also runs where
+and equals the live forward. The peak meter's P1 (FMA and exp chains) and
+P2 (1 to 8 logistic chains, at full occupancy and at 4 warps an SM) equal
+their twins at sizes below, at and beyond one value a thread of the card.
+Every test skips without a CUDA card. This file imports no jax, so it also runs where
 jax is absent:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -677,3 +680,51 @@ def test_flow_forward_artifact_launches_b1_on_the_card(dev, tmp_path):
     assert matching.match_flow_fused.launches == n + 1
     for x, y in zip(got, m.forward_fused(a, b)):
         assert torch.equal(x, y)
+
+
+# ---------------------------------------------------------------------------
+# P1 and P2, the peak meter's issue-rate probes (csrc/vpu_peak.cu)
+# ---------------------------------------------------------------------------
+
+# the kernel's FFMA rounds c - c*c once where the twin rounds twice, and
+# expf may part from torch's exp by an ulp; both maps contract on (0, 1)
+TOL_VPU = 1e-6
+
+
+@pytest.mark.parametrize("n", [1, 257, 132 * 2048 * 3 + 5])
+@pytest.mark.parametrize("op", ["fma", "exp"])
+def test_vpu_loop_kernel_matches_plain(dev, op, n):
+    from depth_estimation_tpu_torch.benchmarks import device_peaks as dp
+    g = torch.Generator(device=dev).manual_seed(n)
+    x = 0.05 + 0.9 * torch.rand(n, generator=g, device=dev)
+    launches = dp.vpu_loop.launches
+    got = dp.vpu_loop(x, op, 4)
+    _, n_chains, steps, mean = dp.P1[op]
+    plain = dp.chains_fma_plain if op == "fma" else dp.chains_exp_plain
+    ref = plain(x, n_chains, steps, 4, mean)
+    torch.cuda.synchronize()
+    assert dp.vpu_loop.launches == launches + 1
+    assert (got - ref).abs().max().item() <= TOL_VPU
+    assert torch.equal(dp.vpu_loop(x, op, 0), x)
+
+
+@pytest.mark.parametrize("warps", [4, 64])
+@pytest.mark.parametrize("n_chains", [1, 2, 4, 8])
+def test_logistic_loop_kernel_matches_plain(dev, n_chains, warps):
+    from depth_estimation_tpu_torch.benchmarks import device_peaks as dp
+    g = torch.Generator(device=dev).manual_seed(n_chains)
+    x = 0.05 + 0.9 * torch.rand(132 * 128 * 2 + 3, generator=g, device=dev)
+    launches = dp.logistic_loop.launches
+    got = dp.logistic_loop(x, n_chains, 3, warps)
+    ref = dp.chains_fma_plain(x, n_chains, dp.P2_STEPS // n_chains, 3, False)
+    torch.cuda.synchronize()
+    assert dp.logistic_loop.launches == launches + 1
+    assert (got - ref).abs().max().item() <= TOL_VPU
+
+
+def test_vpu_kernels_refuse_what_they_do_not_take(dev):
+    from depth_estimation_tpu_torch.benchmarks import device_peaks as dp
+    with pytest.raises(ValueError):
+        dp.vpu_loop(torch.ones(4, 4, device=dev), "fma", 1)
+    with pytest.raises(ValueError):
+        dp.vpu_loop(torch.ones(4, dtype=torch.float64, device=dev), "fma", 1)
