@@ -162,6 +162,7 @@ the card, and {"ok": true, "device": {...}}. A longer report goes to
 chiprun_out/chip_smoke_report.json.
 """
 
+import contextlib
 import gc
 import gzip
 import json
@@ -2877,6 +2878,297 @@ def phase_peaks(dev, card, report):
     return p1, p2
 
 
+# phase 16, the mesh layer (parallel/mesh.py): every visible card, or one
+# card split in two shards where only one is visible (a host thread a
+# card, so one card's two shards are issued from one thread). The online program at
+# PAR_B_CARD streams a card; a shard's streams must equal the unsharded
+# program run on those streams alone (each shard runs that program at its
+# local batch), and against the full-batch run, where cuSOLVER's batched
+# QR and cuDNN may take other paths at another batch size, the x-flow is
+# held to C6's bounds on items whose RANSAC winner is 8 distinct points
+# (the others counted). The row-sharded flow against the unsharded model
+# on the zero-padded frame (cuDNN on another frame height): TOL_FLIP of
+# the WTA indices, TOL_FLOW_PX for ey/ex. The liu GT per shard chunk
+# against the unsharded solve of that chunk within TOL_SOR; one Trainer
+# step within TOL_TRAIN_LOSS_REL / TOL_TRAIN_PARAM of the unsharded step.
+PAR_B_CARD, PAR_STEPS, PAR_TRAIN_B = 128, 3, 64
+
+
+def parallel_mesh():
+    """(the phase's mesh, the number of distinct cards in it)."""
+    from depth_estimation_tpu_torch.parallel import mesh as pm
+    n = torch.cuda.device_count()
+    if n >= 2:
+        return pm.make_mesh([torch.device("cuda", i) for i in range(n)]), n
+    return pm.make_mesh(["cuda:0", "cuda:0"]), 1
+
+
+def sync_all():
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def step_seconds(est, t1, t2, steps):
+    """Host seconds of ``steps`` online steps (alternating frames, every
+    card synchronised after each), after one warm-up step."""
+    est.reset(t1)
+    est.next_frames(t2)
+    sync_all()
+    times = []
+    for k in range(steps):
+        t0 = time.perf_counter()
+        est.next_frames(t1 if k % 2 == 0 else t2)
+        sync_all()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+class shards_in_order:
+    """Within the block, the mesh layer issues its shards one after another
+    from the calling thread, not from a host thread a card: the other
+    design, timed against it (the same path where the mesh is one card)."""
+
+    def __enter__(self):
+        from depth_estimation_tpu_torch.parallel import mesh as pm
+        self.pm, self.saved = pm, pm.run_shards
+
+        def in_order(fn, mesh, *shards):
+            out = []
+            for i, d in enumerate(mesh.devices):
+                with torch.cuda.device(d) if d.type == "cuda" else \
+                        contextlib.nullcontext():
+                    out.append(fn(i, *(s[i] for s in shards)))
+            return out
+        pm.run_shards = in_order
+
+    def __exit__(self, *exc):
+        self.pm.run_shards = self.saved
+
+
+def phase_parallel(dev, card, geom, params, report):
+    """The mesh layer on the card(s): BatchedDepthEstimator.shard (fast and
+    'warp' mode, B1 and B3 on every shard), spatial_sharded_flow_fn (B1 on
+    every shard), sharded_celiu_fn (B4 on every shard) and a Trainer step
+    with use_mesh, each held against its unsharded run, and the online
+    step's time sharded and not. B1's, B3's and B4's counts (and their
+    counts by device) are zeroed before and read after."""
+    from depth_estimation_tpu_torch import api_batched
+    from depth_estimation_tpu_torch.flow import celiu, sor_kernel
+    from depth_estimation_tpu_torch.geometry import Learning
+    from depth_estimation_tpu_torch.geometry3d import egomotion
+    from depth_estimation_tpu_torch.geometry3d.calibration import ARDRONE
+    from depth_estimation_tpu_torch.models import io as mio
+    from depth_estimation_tpu_torch.models.flow import (FlowModel,
+                                                        crop_features_center)
+    from depth_estimation_tpu_torch.ops import _kernels, matching, warp
+    from depth_estimation_tpu_torch.parallel import mesh as pm
+    from depth_estimation_tpu_torch.training import train
+    t_phase = time.perf_counter()
+    mesh, n_cards = parallel_mesh()
+    counters = {"match_fused": matching.match_flow_fused,
+                "warp_banded": warp.banded_bilinear_warp,
+                "sor_redblack": sor_kernel.sor_redblack}
+    for fn in counters.values():
+        fn.launches = 0
+    _kernels.LAUNCHES_BY_DEVICE.clear()
+    out = dict(devices=[str(d) for d in mesh.devices], cards=n_cards,
+               card=card)
+    print(f"parallel: mesh of {mesh.size} shards on {n_cards} card(s): "
+          f"{out['devices']}", flush=True)
+
+    # 1. the online program, B=128 a card, fast and 'warp' mode
+    B = PAR_B_CARD * n_cards
+    gen = torch.Generator(device=dev).manual_seed(21)
+    t1, t2 = forward_frames(gen, B, dev)
+    online = {}
+    # 'warp_banded' too, untimed: 'warp' takes B3 only where a shard's
+    # whole batch is in band, and B3 must run on every card
+    for mode, knobs in (("fast", FAST), ("warp", dict(compensation="warp")),
+                        ("warp_banded", dict(compensation="warp_banded"))):
+        noise = egomotion.gumbel_noise(knobs.get("ransac_samples", 64),
+                                       ARDRONE.sfm.max_points, dev)
+
+        def estimator(device):
+            return api_batched.BatchedDepthEstimator(
+                geom, params, ARDRONE, head="mean", device=device,
+                ransac_noise=noise, **knobs)
+        full = estimator(dev)
+        full.reset(t1)
+        u1 = full.last_u
+        want = [t.cpu() for t in full.next_frames(t2)]
+        distinct = ego_trace(full, u1, full.last_u)["distinct"]
+        sharded = estimator(dev).shard(mesh)
+        sharded.reset(t1)
+        got = [t.cpu() for t in sharded.next_frames(t2)]
+        check(isinstance(sharded.last_u, pm.Sharded)
+              and sharded.last_u.devices == mesh.devices,
+              f"{mode}: the stream state is not sharded on the mesh")
+        # each shard against the unsharded program on its streams alone
+        loc = B // mesh.size
+        exact = 0
+        for i, d in enumerate(mesh.devices):
+            sl = slice(i * loc, (i + 1) * loc)
+            alone = estimator(d)
+            alone.reset(t1[sl].to(d))
+            ref = [t.cpu() for t in alone.next_frames(t2[sl].to(d))]
+            exact += all(torch.equal(a[sl], b) for a, b in zip(got, ref))
+        rows = flow_diff(got, want)
+        held = [r for r, k in zip(rows, distinct) if k == 8]
+        worst = dict(mean=max(r["mean"] for r in held),
+                     p99=max(r["p99"] for r in held))
+        res = dict(B=B, exact_shards=exact, shards=mesh.size,
+                   items_exact=sum(r["max"] == 0 for r in rows),
+                   items_held=len(held), items_skipped_c9=B - len(held),
+                   worst_mean_px=worst["mean"], worst_p99_px=worst["p99"],
+                   good_equal=all(r["good"][0] == r["good"][1] for r in rows),
+                   min_mask_agreement=min(r["mask_agreement"] for r in rows))
+        if mode == "warp_banded":
+            online[mode] = res
+            print(f"parallel online {mode}: B={B} over {mesh.size} shards; "
+                  f"{exact}/{mesh.size} shards equal to the unsharded "
+                  f"program on their streams; against the full batch "
+                  f"{res['items_exact']}/{B} items exact, xflow diff mean <= "
+                  f"{worst['mean']:.2e} p99 <= {worst['p99']:.2e} px on "
+                  f"{len(held)} items", flush=True)
+            check(exact == mesh.size and res["good_equal"]
+                  and worst["mean"] <= TOL_E2E_MEAN_PX
+                  and worst["p99"] <= TOL_E2E_P99_PX, f"{mode}: {res}")
+            continue
+        res["unsharded_s"] = step_seconds(estimator(dev), t1, t2, PAR_STEPS)
+        res["sharded_s"] = step_seconds(estimator(dev).shard(mesh), t1, t2,
+                                        PAR_STEPS)
+        with shards_in_order():
+            res["sharded_in_order_s"] = step_seconds(
+                estimator(dev).shard(mesh), t1, t2, PAR_STEPS)
+        res["unsharded_pairs_s"] = B / res["unsharded_s"]
+        res["sharded_pairs_s"] = B / res["sharded_s"]
+        if n_cards > 1:     # one card at its own B=128, the per-card yardstick
+            res["one_card_s"] = step_seconds(estimator(dev), t1[:PAR_B_CARD],
+                                             t2[:PAR_B_CARD], PAR_STEPS)
+            res["one_card_pairs_s"] = PAR_B_CARD / res["one_card_s"]
+        online[mode] = res
+        print(f"parallel online {mode}: B={B} over {mesh.size} shards; "
+              f"{exact}/{mesh.size} shards equal to the unsharded program on "
+              f"their streams; against the full batch {res['items_exact']}"
+              f"/{B} items exact, on the {len(held)} with 8-distinct winners "
+              f"xflow diff mean <= {worst['mean']:.2e} p99 <= "
+              f"{worst['p99']:.2e} px ({B - len(held)} skipped, C9), good "
+              f"equal {res['good_equal']}, mask agreement >= "
+              f"{res['min_mask_agreement']:.5f}; step {res['sharded_s']*1e3:.1f}"
+              f" ms sharded ({res['sharded_in_order_s']*1e3:.1f} ms with the "
+              f"shards issued in order from one thread), "
+              f"{res['unsharded_s']*1e3:.1f} ms unsharded "
+              f"({res['sharded_pairs_s']:.1f} / {res['unsharded_pairs_s']:.1f}"
+              f" frame-pairs/s)" + (
+                  f"; one card at B={PAR_B_CARD}: {res['one_card_s']*1e3:.1f}"
+                  f" ms ({res['one_card_pairs_s']:.1f} frame-pairs/s)"
+                  if n_cards > 1 else ""), flush=True)
+        check(exact == mesh.size, f"{mode}: a shard differs from the "
+              f"unsharded program on its streams")
+        check(res["good_equal"], f"{mode}: good differs from the full batch")
+        check(res["min_mask_agreement"] >= TOL_E2E_MASK,
+              f"{mode}: mask agreement {res['min_mask_agreement']}")
+        check(len(held) > 0 and worst["mean"] <= TOL_E2E_MEAN_PX
+              and worst["p99"] <= TOL_E2E_P99_PX,
+              f"{mode}: x-flow against the full batch {worst}")
+    out["online"] = online
+
+    # 2. one frame pair split by rows, against the zero-padded frame
+    model = mio.load_tree_into(FlowModel(geom, device=dev), params)
+    u = full.last_u[:2].float()
+    H = -(-geom.hImg // mesh.size) * mesh.size
+    halo = (geom.maxh - 1) + (geom.hKernel - 1)
+    img1 = torch.nn.functional.pad(u[0], (0, 0, 0, 0, 0, H - geom.hImg))
+    img2 = torch.nn.functional.pad(u[1], (0, 0, 0, 0, 0, H - geom.hImg))
+    idx_s, ey_s, ex_s, _ = (o.gather(dev) for o in
+                            pm.spatial_sharded_flow_fn(model, mesh)(img1,
+                                                                   img2))
+    pad = (0, 0, 0, 0, 0, halo)
+    with torch.no_grad():
+        f1 = crop_features_center(geom, model.features(
+            torch.nn.functional.pad(img1, pad)))
+        f2 = model.features(torch.nn.functional.pad(img2, pad))
+        idx_u, ey_u, ex_u, _ = matching.match_flow_fused(f1, f2, geom.maxh,
+                                                         geom.maxw)
+    flips = (idx_s != idx_u[:H]).float().mean().item()
+    same = idx_s == idx_u[:H]
+    dy = (ey_s - ey_u[:H]).abs()[same].max().item()
+    dx = (ex_s - ex_u[:H]).abs()[same].max().item()
+    out["spatial_flow"] = dict(rows=H, halo=halo, flip_share=flips,
+                               ey_max_diff=dy, ex_max_diff=dx)
+    print(f"parallel spatial flow: {H}x{geom.wImg} over {mesh.size} shards, "
+          f"halo {halo} rows: WTA differs on {flips:.2e}, ey/ex max diff "
+          f"{dy:.2e} / {dx:.2e} px", flush=True)
+    check(flips <= TOL_FLIP and dy <= TOL_FLOW_PX and dx <= TOL_FLOW_PX,
+          f"spatial flow against the padded frame: {out['spatial_flow']}")
+
+    # 3. the liu GT at config2 (B4 on every shard)
+    im1, im2 = shifted_textures(gen, GT_B, GT_H, GT_W, GT_SHIFT, dev)
+    vx, vy, warped = pm.sharded_celiu_fn(mesh, **GT_SCHEDULE)(im1, im2)
+    loc = GT_B // mesh.size
+    gt_diff = 0.0
+    for i, d in enumerate(mesh.devices):
+        sl = slice(i * loc, (i + 1) * loc)
+        ref = celiu.coarse2fine_flow_batched(im1[sl].to(d), im2[sl].to(d),
+                                             **GT_SCHEDULE)
+        gt_diff = max([gt_diff] + [(a - b).abs().max().item()
+                                   for a, b in zip((vx[i], vy[i], warped[i]),
+                                                   ref)])
+    med_u = vx.gather(dev)[:, 12:-12, 12:-12].flatten(1).median(dim=1).values
+    out["liu"] = dict(B=GT_B, max_diff_per_shard=gt_diff,
+                      median_u=med_u.tolist())
+    print(f"parallel liu config2: B={GT_B} over {mesh.size} shards, max diff "
+          f"against the unsharded solve of each shard's pairs {gt_diff:.2e}, "
+          f"median inner x-flow {med_u.min().item():.4f}.."
+          f"{med_u.max().item():.4f} px (shift {GT_SHIFT})", flush=True)
+    check(gt_diff <= TOL_SOR, f"liu per shard: {gt_diff}")
+    check(bool(((med_u - GT_SHIFT).abs() < 0.25).all()), "liu shift")
+
+    # 4. one Trainer step, B=64
+    lrn = Learning(**TRAIN_LEARNING)
+    g = torch.Generator(device=dev).manual_seed(22)
+    x1 = torch.rand(PAR_TRAIN_B, geom.hPatch2, geom.wPatch2, 3, generator=g,
+                    device=dev)
+    x2 = torch.rand(PAR_TRAIN_B, geom.hPatch2, geom.wPatch2, 3, generator=g,
+                    device=dev)
+    it = torch.randint(0, geom.maxh * geom.maxw, (PAR_TRAIN_B,), generator=g,
+                       device=dev, dtype=torch.int32)
+    soft = torch.zeros(PAR_TRAIN_B, geom.maxh * geom.maxw, device=dev)
+    single = train.Trainer(geom, lrn, device=dev).init(
+        torch.Generator().manual_seed(0))
+    dp = train.Trainer(geom, lrn, device=dev).init(
+        torch.Generator().manual_seed(0)).use_mesh(mesh)
+    a1, a2 = single.step(x1, x2, it, soft), dp.step(x1, x2, it, soft)
+    loss_rel = abs(a1["loss"].item() - a2["loss"].item()) / abs(
+        a1["loss"].item())
+    pdiff = max_param_diff(single.model, dp.model)
+    out["trainer_step"] = dict(B=PAR_TRAIN_B, loss_rel=loss_rel,
+                               param_max_diff=pdiff,
+                               grad_ok=bool(a2["grad_ok"]))
+    print(f"parallel Trainer step: B={PAR_TRAIN_B} over {mesh.size} shards: "
+          f"loss rel diff {loss_rel:.2e}, parameters max diff {pdiff:.2e}",
+          flush=True)
+    check(bool(a2["grad_ok"]) and loss_rel <= TOL_TRAIN_LOSS_REL
+          and pdiff <= TOL_TRAIN_PARAM, f"sharded step: {out['trainer_step']}")
+
+    sync_all()
+    counts = {k: fn.launches for k, fn in counters.items()}
+    by_device = {}
+    for (name, d), v in _kernels.LAUNCHES_BY_DEVICE.items():
+        by_device.setdefault(name, {})[d] = v
+    out["launches"] = counts
+    out["launches_by_device"] = by_device
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"parallel: launches {counts}, by device {by_device}; phase "
+          f"{out['seconds']:.1f} s", flush=True)
+    for fn in counters.values():
+        per = by_device.get(fn.__name__, {})
+        for d in set(out["devices"]):
+            check(per.get(d, 0) > 0, f"{fn.__name__} not launched on {d}")
+    report["parallel"] = out
+    return counts, by_device
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check "
@@ -2928,6 +3220,8 @@ def main() -> int:
     fam_root.cleanup()
     robot_counts = phase_robotics(dev, card, geom, params, report)
     p1, p2 = phase_peaks(dev, card, report)
+    par_counts, par_by_device = phase_parallel(dev, card, geom, params,
+                                               report)
 
     def entry(name, fn, src, replaces, row):
         return {"name": fn, "route": "cuda",
@@ -3004,6 +3298,12 @@ def main() -> int:
         next(k for k in kernels if k["name"] == name).update(
             launches_cli_phase=cli_counts[key],
             launches_robotics_phase=robot_counts[key])
+    # phase 16: the mesh layer, B1, B3 and B4 on every shard's card
+    for k, key in zip(kernels, ("match_fused", "warp_banded", "match_fast",
+                                "sor_redblack", "match_throughput")):
+        k["launches_parallel_phase"] = par_counts.get(key, 0)
+        k["launches_parallel_phase_by_device"] = par_by_device.get(
+            k["name"], {})
     kernels += [p1, p2]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} not launched on its path")

@@ -44,6 +44,11 @@ a recorded decision not to port it, ROADMAP A.16):
   ops/                         matchers, banded warp, confidence masks,
                                post-processing filters, normalizations
   api / api_batched            the per-frame and the batched online programs
+  parallel/                    the mesh layer: the batched programs, the
+                               trainers and the offline builds split over
+                               the cards of a host (data parallel, one
+                               process and a host thread a card), and one
+                               frame split by rows with halos
   serving                      torch.export artifacts of every family and of
                                the batched online program
   cli/                         tools (rectify, download, stream, video,

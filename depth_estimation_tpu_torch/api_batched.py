@@ -21,6 +21,8 @@ Compensation modes, as in the reference:
 
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 import torch
 
@@ -119,15 +121,51 @@ class BatchedDepthEstimator:
             self.load_params(params)
         self.last_u = None
         self.last_feats = None
+        self._mesh = None
 
     def load_params(self, params) -> None:
         """Load the trunk from a flax-layout parameter tree (numpy)."""
         self.trunk.load_state_dict(filter_state_from_jax(self.geometry, params))
 
     def _frames(self, frames) -> torch.Tensor:
+        if self._mesh is not None:
+            # left where it is: the mesh sends each shard to its card
+            return frames if isinstance(frames, torch.Tensor) \
+                else torch.as_tensor(frames)
         if isinstance(frames, np.ndarray):
             return torch.tensor(frames, device=self.device)
         return frames.to(self.device)
+
+    def replica(self, device, trunk: ConvFilter) -> "BatchedDepthEstimator":
+        """A copy of this estimator on ``device`` with ``trunk`` (a replica
+        of the trunk there) and every setting shared: one shard's program
+        of a mesh (``parallel.mesh``)."""
+        r = copy.copy(self)
+        r.device = torch.device(device)
+        r.trunk = trunk
+        r.ransac_noise = (None if self.ransac_noise is None
+                          else self.ransac_noise.to(r.device))
+        r._mesh = None
+        r.last_u = r.last_feats = None
+        r.__dict__.pop("_prep", None)
+        r.__dict__.pop("_step", None)
+        return r
+
+    def shard(self, mesh, axis: str = "dp") -> "BatchedDepthEstimator":
+        """Split the stream batch across a device mesh
+        (``parallel.mesh.Mesh``): every stage of the per-frame program is
+        per stream, so the step is pure data parallelism. Each shard runs
+        this program at its local batch on its own card, with a replica of
+        the trunk (kernel B1, and B3 in the 'warp' modes, launched on every
+        card), and the stream state stays sharded on the cards between
+        steps. Returns self; ``reset`` and ``next_frames`` keep their API
+        (``next_frames`` gathers its outputs on ``device``). The batch must
+        divide by the mesh size."""
+        from .parallel import mesh as pmesh
+        self._prep = pmesh.sharded_pipeline_prep(self, mesh, axis)
+        self._step = pmesh.sharded_pipeline_step(self, mesh, axis)
+        self._mesh = mesh
+        return self
 
     @torch.no_grad()
     def _prep(self, frames: torch.Tensor):
@@ -228,10 +266,13 @@ class BatchedDepthEstimator:
         good) on the device: (B, hImg, wImg) f32 x3 and (B,) bool."""
         if self.last_u is None:
             raise RuntimeError("call reset(first_frames) first")
-        u, feats, xflow, mask, depth, good = self._step(
-            self.last_u, self.last_feats, self._frames(frames))
+        u, feats, *outs = self._step(self.last_u, self.last_feats,
+                                     self._frames(frames))
         self.last_u = u
         self.last_feats = feats
+        if self._mesh is not None:
+            outs = [o.gather(self.device) for o in outs]
+        xflow, mask, depth, good = outs
         return xflow, mask, depth, good
 
 

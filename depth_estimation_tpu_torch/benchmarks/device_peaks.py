@@ -188,10 +188,9 @@ def _launch(key, x, n_iter, warps_an_sm):
         raise ValueError(f"{x.numel()} elements, {n_iter} iterations")
     threads, blocks = occupancy(warps_an_sm)
     out = torch.empty_like(x)
-    lib = _kernels.library()
-    with torch.cuda.device(x.device):
-        lib.call("vpu_peak_launch", x.data_ptr(), out.data_ptr(), x.numel(),
-                 int(n_iter), VARIANTS[key], threads, blocks)
+    _kernels.library().call(
+        "vpu_peak_launch", x.device, x.data_ptr(), out.data_ptr(), x.numel(),
+        int(n_iter), VARIANTS[key], threads, blocks)
     return out
 
 

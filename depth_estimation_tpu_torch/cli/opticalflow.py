@@ -5,9 +5,10 @@ search window (with the multiscale power-of-two ratio schedule), the
 learning (SGD rate, decay, soft targets, a renewable training set), the GT
 generator (cross-correlation, cc-mean or liu), the motion correction, the
 dataset's slice, and the per-epoch score and checkpoint (``--resume``
-continues a run). Run as ``python -m depth_estimation_tpu_torch.cli.opticalflow
---root-directory data/ ... [--device cpu]``; the JAX CLI's ``--dp`` is not
-ported.
+continues a run), and the data-parallel mesh (``--dp``: the dataset build
+and the training batches split across the cards, ``parallel/mesh.py``).
+Run as ``python -m depth_estimation_tpu_torch.cli.opticalflow
+--root-directory data/ ... [--device cpu] [--dp auto|off|N]``.
 """
 
 from __future__ import annotations
@@ -86,6 +87,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-cal", "--calibration", default="ardrone",
                    help="calibration preset name")
     p.add_argument("-bs", "--batch-size", type=int, default=32)
+    p.add_argument("--dp", default="auto", metavar="auto|off|N",
+                   help="data-parallel device mesh: 'auto' engages every "
+                        "visible card when there is more than one "
+                        "(training batches sharded with replicated weights, "
+                        "the replicas' gradients summed before the update, "
+                        "and the rectification/GT dataset build split "
+                        "across the mesh); 'off' stays on one device; N "
+                        "uses the first N cards (N CPU shards with --device "
+                        "cpu). Batch size must divide by the mesh size.")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda; 'cpu' runs "
                         "the kernels' plain versions)")
@@ -181,6 +191,12 @@ def main(argv=None) -> int:
     cal = calmod.PRESETS[args.calibration]
     print(model_io.model_dir_name(geom, lrn))
 
+    # --dp: the dataset build and the training both shard over the mesh
+    from ..parallel import mesh as pm
+    mesh = pm.auto_mesh(args.dp, dev)
+    if mesh is not None:
+        print(f"dp mesh: {mesh.size} devices ({mesh.platform})")
+
     # consecutive frames and their GT (cached under the dataset root)
     raw = ds_mod.load_data_optical_flow(
         geom, cal, args.root_directory, args.num_input_images,
@@ -188,7 +204,7 @@ def main(argv=None) -> int:
         cache_root=args.root_directory,
         motion_correction=(None if args.motion_correction == "none"
                            else args.motion_correction),
-        groundtruth=args.groundtruth, device=dev)
+        groundtruth=args.groundtruth, device=dev, mesh=mesh)
     images = raw["warped_images"]
     currents = raw["images"]
     flows = raw["flow"]
@@ -219,6 +235,8 @@ def main(argv=None) -> int:
                           args.n_test_set, rng)
     else:
         trainer = training.Trainer(geom, lrn, device=dev)
+    if mesh is not None:
+        trainer.use_mesh(mesh)
     trainer.init(torch.Generator().manual_seed(0))
     if args.load_weights:
         model_io.load_weights_into(args.load_weights, trainer.model)

@@ -11,9 +11,10 @@ microbenchmark, serving export.
   * export: a serving artifact of a trained model dir (``serving.py``).
 
 Every subcommand that computes takes ``--device`` (default ``cuda``; it
-raises where there is no card unless given ``--device cpu``). The JAX
-package's data-parallel ``rectify --dp`` is not ported: the port runs on
-one card. Run as ``python -m depth_estimation_tpu_torch.cli.tools``.
+raises where there is no card unless given ``--device cpu``). ``rectify
+--dp auto|off|N`` (default auto) splits the rectification batch across the
+cards (``parallel/mesh.py``; with ``--device cpu``, N CPU shards). Run as
+``python -m depth_estimation_tpu_torch.cli.tools``.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ def cmd_rectify(args) -> int:
     from ..data.datasets import load_rectified_pair
     from ..geometry import Geometry
     from ..geometry3d import calibration as calmod
+    from ..parallel import mesh as pm
     from ..utils.viz import save_image
 
     cal = calmod.PRESETS[args.calibration]
@@ -43,6 +45,47 @@ def cmd_rectify(args) -> int:
     rect_dir = os.path.join(args.directory, "rectified_images")
     os.makedirs(und_dir, exist_ok=True)
     os.makedirs(rect_dir, exist_ok=True)
+    mesh = pm.auto_mesh(args.dp, args.device)
+    if mesh is not None:
+        # the sharded batch path: consecutive frames in chunks of 16 pairs
+        # a device, each chunk one sharded rectification program
+        nd = mesh.size
+        print(f"dp mesh: {nd} devices ({mesh.platform})")
+        rect_fn = pm.sharded_rectify_fn(mesh, cal, cal.hImg, cal.wImg)
+        chunk = 16 * nd
+        k = args.first
+        n_done = 0
+        frames = [loader.get_next_frame()]
+        done = frames[0] is None
+        while not done:
+            # fill a chunk of consecutive pairs (the last frame carries over)
+            while len(frames) - 1 < chunk:
+                if args.num and n_done + len(frames) - 1 >= args.num:
+                    break
+                img = loader.get_next_frame()
+                if img is None:
+                    break
+                frames.append(img)
+            if len(frames) < 2:
+                break
+            done = len(frames) - 1 < chunk
+            prevs = np.stack(frames[:-1]).astype(np.float32)
+            imgs = np.stack(frames[1:]).astype(np.float32)
+            pp, n_real = pm.pad_to_multiple(prevs, nd)
+            pi, _ = pm.pad_to_multiple(imgs, nd)
+            _, img_s, warped, _, _, _ = rect_fn(pp, pi)
+            img_s = np.asarray(img_s)[:n_real]
+            warped = np.asarray(warped)[:n_real]
+            for j in range(n_real):
+                save_image(os.path.join(und_dir, f"{k:09d}.png"),
+                           img_s[j].transpose(2, 0, 1))
+                save_image(os.path.join(rect_dir, f"{k:09d}.png"),
+                           warped[j].transpose(2, 0, 1))
+                k += 1
+            n_done += n_real
+            frames = frames[-1:]
+        print(f"rectified {n_done} pairs")
+        return 0
     prev = loader.get_next_frame()
     k = args.first
     while True:
@@ -491,6 +534,11 @@ def main(argv=None) -> int:
     r.add_argument("--calibration", default="ardrone")
     r.add_argument("--first", type=int, default=0)
     r.add_argument("--num", type=int, default=0)
+    r.add_argument("--dp", default="auto", metavar="auto|off|N",
+                   help="data-parallel device mesh for the rectification "
+                        "batch ('auto' = every card when there are two or "
+                        "more; with --device cpu, N is N CPU shards; see "
+                        "parallel/mesh.py sharded_rectify_fn)")
     device_flag(r)
 
     d = sub.add_parser("download")

@@ -4,9 +4,11 @@
 The network from a string flag (``-net "[[3,5,5,10],'tanh',...]"``), the
 polar input size, hWin classes, the nll over the radial window, and a
 weights-only checkpoint an epoch (``e{N}.msgpack`` with ``meta.json``,
-``training/families.RadialTrainer``). Run as ``python -m
-depth_estimation_tpu_torch.cli.train_radial -rd data/ ... [--device cpu]``;
-the JAX CLI's ``--dp`` is not ported.
+``training/families.RadialTrainer``), and the data-parallel mesh
+(``--dp``: the polar dataset and GT build and the training batches split
+across the cards, ``parallel/mesh.py``). Run as ``python -m
+depth_estimation_tpu_torch.cli.train_radial -rd data/ ... [--device cpu]
+[--dp auto|off|N]``.
 """
 
 from __future__ import annotations
@@ -46,6 +48,11 @@ def build_parser():
                         "PIXELS come from --dataset: GT computed on the "
                         "clean recording, features learned on the noisy "
                         "one")
+    p.add_argument("--dp", default="auto", metavar="auto|off|N",
+                   help="data-parallel device mesh: shards the polar "
+                        "dataset/GT build and the training batches across "
+                        "the visible cards ('auto' = all when >1; N CPU "
+                        "shards with --device cpu)")
     p.add_argument("-sl", "--scene-length", type=int, default=0,
                    help="frames per scene when the dataset dir holds "
                         "several back-to-back recordings: pairs crossing "
@@ -89,10 +96,19 @@ def main(argv=None) -> int:
                   f"({len(gt_frames)} frames vs {len(frames)})",
                   file=sys.stderr)
             return 1
+    # --dp: shard the dataset/GT build and training over a device mesh
+    from ..parallel import mesh as pm
+    mesh = pm.auto_mesh(args.dp, dev)
+    if mesh is not None:
+        print(f"dp mesh: {mesh.size} devices ({mesh.platform})")
+        if args.batch_size % mesh.size:
+            print(f"batch size {args.batch_size} not divisible by the "
+                  f"{mesh.size}-device mesh", file=sys.stderr)
+            return 1
     pairs = tr.load_pairs(cal, frames, args.h_input, args.w_input,
                           max_flow=args.max_flow,
                           scene_length=args.scene_length,
-                          gt_frames=gt_frames)
+                          gt_frames=gt_frames, mesh=mesh)
     if not pairs:
         print("no usable pairs", file=sys.stderr)
         return 1
@@ -101,6 +117,8 @@ def main(argv=None) -> int:
     rng = np.random.RandomState(0)
     corpus = tr.sample(pairs, args.n_train_set, rng)
     tr.init(torch.Generator().manual_seed(0))
+    if mesh is not None:
+        tr.use_mesh(mesh)
     corpus = tuple(torch.as_tensor(a, device=dev) for a in corpus)
     os.makedirs(args.output_model_dir, exist_ok=True)
     for epoch in range(args.num_epochs):

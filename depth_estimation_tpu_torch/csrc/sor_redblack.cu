@@ -308,7 +308,7 @@ constexpr int SLOTS = 8;   // shapes kept a kernel and device (config2 has 7)
 std::atomic<unsigned long long> prepared[MAX_DEVICES][3][2][SLOTS];
 
 template <int MODE, bool PROBE>
-int prepare(int C, int B, size_t smem, cudaLaunchConfig_t* cfg,
+int prepare(int C, int B, size_t smem, int device, cudaLaunchConfig_t* cfg,
             cudaLaunchAttribute* attr, int* active) {
   auto kern = sor_cluster_kernel<MODE, PROBE>;
   cfg->gridDim = dim3(C, B, 1);
@@ -320,9 +320,13 @@ int prepare(int C, int B, size_t smem, cudaLaunchConfig_t* cfg,
   attr[0].val.clusterDim.z = 1;
   cfg->attrs = attr;
   cfg->numAttrs = 1;
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
+  // the plan is the card's that holds the tensors, and that card must be
+  // the current one (the wrapper makes it so): the attribute, the
+  // occupancy query and the launch all act on the current device
+  int current = 0;
+  cudaError_t err = cudaGetDevice(&current);
   if (err != cudaSuccess) return (int)err;
+  if (current != device) return -4;
   const unsigned long long key = (unsigned long long)C << 48 | smem << 16;
   std::atomic<unsigned long long>* slots =
       device < MAX_DEVICES ? prepared[device][MODE][PROBE] : nullptr;
@@ -347,13 +351,13 @@ int prepare(int C, int B, size_t smem, cudaLaunchConfig_t* cfg,
 template <int MODE, bool PROBE>
 int launch_mode(const Planes& P, float* du, float* dv, int B, int H, int W,
                 int n_sor, float neg_alpha, float omega, float one_minus_omega,
-                int C, int rows, cudaStream_t stream) {
+                int C, int rows, int device, cudaStream_t stream) {
   const size_t smem = smem_bytes(MODE, rows, W);
   if (smem > SMEM_LIMIT) return -2;
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr[1];
   int active = 0;
-  int err = prepare<MODE, PROBE>(C, B, smem, &cfg, attr, &active);
+  int err = prepare<MODE, PROBE>(C, B, smem, device, &cfg, attr, &active);
   if (err != 0) return err;
   if (active < 1) return -3;
   cfg.stream = stream;
@@ -373,26 +377,30 @@ bool plan_ok(int B, int H, int W, int n_sor, int C, int rows, int mode) {
 template <bool PROBE>
 int dispatch(const Planes& P, float* du, float* dv, int B, int H, int W,
              int n_sor, float neg_alpha, float omega, float one_minus_omega,
-             int C, int rows, int mode, cudaStream_t st) {
-  if (!plan_ok(B, H, W, n_sor, C, rows, mode)) return -1;
+             int C, int rows, int mode, int device, cudaStream_t st) {
+  if (!plan_ok(B, H, W, n_sor, C, rows, mode) || device < 0) return -1;
   if (mode == ALL_SHARED)
     return launch_mode<ALL_SHARED, PROBE>(P, du, dv, B, H, W, n_sor, neg_alpha,
-                                          omega, one_minus_omega, C, rows, st);
+                                          omega, one_minus_omega, C, rows,
+                                          device, st);
   if (mode == FLOW_SHARED)
     return launch_mode<FLOW_SHARED, PROBE>(P, du, dv, B, H, W, n_sor, neg_alpha,
-                                           omega, one_minus_omega, C, rows, st);
+                                           omega, one_minus_omega, C, rows,
+                                           device, st);
   return launch_mode<ALL_GLOBAL, PROBE>(P, du, dv, B, H, W, n_sor, neg_alpha,
-                                        omega, one_minus_omega, C, rows, st);
+                                        omega, one_minus_omega, C, rows,
+                                        device, st);
 }
 
 }  // namespace
 
 // du and dv are written, not read (the iterations start from zero).
 // (cluster, rows, mode) is the wrapper's plan: cluster == ceil(H / rows)
-// CTAs an image, each owning `rows` rows, planes placed by `mode`.
+// CTAs an image, each owning `rows` rows, planes placed by `mode`, on card
+// `device` (the tensors' card, which must be the current device).
 // Returns 0, a cudaError_t from the launch, -1 for a bad size or plan, -2
 // where the plan's strip exceeds shared memory, -3 where the card cannot
-// hold one such cluster.
+// hold one such cluster, -4 where `device` is not the current device.
 extern "C" int sor_redblack_launch(const void* ww, const void* we,
                                    const void* wn, const void* ws,
                                    const void* denu, const void* denv,
@@ -401,7 +409,7 @@ extern "C" int sor_redblack_launch(const void* ww, const void* we,
                                    int H, int W, int n_sor, float neg_alpha,
                                    float omega, float one_minus_omega,
                                    int cluster, int rows, int mode,
-                                   void* stream) {
+                                   int device, void* stream) {
   Planes P{static_cast<const float*>(ww),   static_cast<const float*>(we),
            static_cast<const float*>(wn),   static_cast<const float*>(ws),
            static_cast<const float*>(denu), static_cast<const float*>(denv),
@@ -409,7 +417,8 @@ extern "C" int sor_redblack_launch(const void* ww, const void* we,
            static_cast<const float*>(ixy)};
   return dispatch<false>(P, static_cast<float*>(du), static_cast<float*>(dv),
                          B, H, W, n_sor, neg_alpha, omega, one_minus_omega,
-                         cluster, rows, mode, static_cast<cudaStream_t>(stream));
+                         cluster, rows, mode, device,
+                         static_cast<cudaStream_t>(stream));
 }
 
 // The dependency floor of a plan: the same launch with every half-sweep's
@@ -417,9 +426,10 @@ extern "C" int sor_redblack_launch(const void* ww, const void* we,
 // du/dv of B x H x W floats (left at zero). Same return codes as sor_redblack_launch.
 extern "C" int sor_redblack_probe_launch(void* du, void* dv, int B, int H,
                                          int W, int n_sor, int cluster,
-                                         int rows, int mode, void* stream) {
+                                         int rows, int mode, int device,
+                                         void* stream) {
   Planes P{};
   return dispatch<true>(P, static_cast<float*>(du), static_cast<float*>(dv),
                         B, H, W, n_sor, 0.f, 0.f, 0.f, cluster, rows, mode,
-                        static_cast<cudaStream_t>(stream));
+                        device, static_cast<cudaStream_t>(stream));
 }

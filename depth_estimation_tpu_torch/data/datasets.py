@@ -27,7 +27,9 @@ Every entry point runs on ``device``: the card unless the caller passes
 arguments: ``noise`` (n_samples, 8, max_points) Gumbel noise for the
 essential fit (default: ``egomotion.gumbel_noise``, seed 1) and
 ``sample_idx`` (n_samples, 5) for the 4-DoF fit (default: seed 0). The
-reference's ``mesh`` (sharding over TPU chips) is dropped.
+batched loaders take a ``mesh`` (``parallel.mesh.Mesh``, the CLIs' --dp
+flag): the pair stack, and its ground truth, are split across the mesh's
+devices, each running the same program at its local batch.
 """
 
 from __future__ import annotations
@@ -231,26 +233,75 @@ def load_rectified_pairs_batched(
     cache_root: Optional[str] = None, names: Optional[List[str]] = None,
     compute_gt: bool = True, delta: int = 1,
     groundtruth: str = "cross-correlation", noise=None, device="cuda",
+    mesh=None,
 ) -> List[RectifiedPair]:
     """The 'sfm' loader over the consecutive pairs (frames[k],
     frames[k + delta]) in one batched pass (``rectify_batch``), then the
     GT: disk-cache hits read, the exhaustive misses in batched chunks, the
-    liu solves a pair at a time."""
+    liu solves a pair at a time.
+
+    With ``mesh`` (more than one device) the pair stack is split across
+    the mesh for the rectification (``parallel.mesh.sharded_rectify_fn``,
+    the same RANSAC noise on every shard) and for the GT (the sharded
+    exhaustive matcher, or, for 'liu', the batched solver on each shard's
+    cache misses, ``sharded_celiu_fn``); each shard runs its pairs at its
+    local batch."""
     dev = resolve(device)
-    prevs = as_f32(np.stack(frames[:-delta]), dev)
-    imgs = as_f32(np.stack(frames[delta:]), dev)
+    sharded = mesh is not None and mesh.size > 1
     if noise is None:
         noise = ego.gumbel_noise(64, cal.sfm.max_points, dev)
-    outs = rectify_batch(prevs, imgs, cal.K, tuple(cal.distortion),
-                         geom.hImg, geom.wImg, cal.sfm.max_points,
-                         cal.sfm.points_quality, as_f32(noise, dev))
+    if sharded:
+        from ..parallel import mesh as pm
+        rect_fn = pm.sharded_rectify_fn(mesh, cal, geom.hImg, geom.wImg,
+                                        noise=as_f32(noise, dev))
+        pp, n_real = pm.pad_to_multiple(
+            np.stack(frames[:-delta]).astype(np.float32), mesh.size)
+        pi, _ = pm.pad_to_multiple(
+            np.stack(frames[delta:]).astype(np.float32), mesh.size)
+        outs = [np.asarray(o)[:n_real] for o in rect_fn(pp, pi)]
+    else:
+        prevs = as_f32(np.stack(frames[:-delta]), dev)
+        imgs = as_f32(np.stack(frames[delta:]), dev)
+        outs = rectify_batch(prevs, imgs, cal.K, tuple(cal.distortion),
+                             geom.hImg, geom.wImg, cal.sfm.max_points,
+                             cal.sfm.points_quality, as_f32(noise, dev))
     prev_s, img_s, warped, mask, n_inl, n_fnd = (host(o) for o in outs)
     B = prev_s.shape[0]
     good = [float(n_inl[k]) / max(float(n_fnd[k]), 1.0)
             >= cal.bad_image_threshold for k in range(B)]
 
     gts: Dict[int, Tuple] = {}
-    if compute_gt and groundtruth == "liu":
+    if compute_gt and groundtruth == "liu" and sharded:
+        # cache hits from disk, every miss through the batched solver
+        # split across the mesh
+        misses = []
+        for k in range(B):
+            if not good[k]:
+                continue
+            name = names[k] if names else ""
+            if cache_root is not None and name:
+                path = gt_mod.liu_cache_path(cache_root, geom, 1, name)
+                if os.path.exists(path):
+                    z = np.load(path)
+                    if z["fy"].shape == (geom.hImg, geom.wImg):
+                        gts[k] = (z["fy"], z["fx"], None)
+                        continue
+            misses.append(k)
+        if misses:
+            celiu_fn = pm.sharded_celiu_fn(
+                mesh, alpha=0.005, ratio=0.75, min_width=30,
+                n_outer=5, n_inner=1, n_sor=40)
+            im1, n_real = pm.pad_to_multiple(warped[misses], mesh.size)
+            im2, _ = pm.pad_to_multiple(img_s[misses], mesh.size)
+            vx, vy, _w = celiu_fn(im1, im2)
+            vx, vy = np.asarray(vx)[:n_real], np.asarray(vy)[:n_real]
+            for j, k in enumerate(misses):
+                gts[k] = (vy[j], vx[j], None)
+                name = names[k] if names else ""
+                if cache_root is not None and name:
+                    gt_mod.store_cached_liu_flow(cache_root, geom, 1, name,
+                                                 vy[j], vx[j])
+    elif compute_gt and groundtruth == "liu":
         for k in range(B):
             if good[k]:
                 name = names[k] if names else ""
@@ -271,7 +322,8 @@ def load_rectified_pairs_batched(
             misses.append(k)
         if misses:
             fy, fx, conf = gt_mod.exhaustive_flow_batched(
-                geom, warped[misses], img_s[misses], method=method, device=dev)
+                geom, warped[misses], img_s[misses], method=method, device=dev,
+                mesh=mesh)
             for j, k in enumerate(misses):
                 gts[k] = (fy[j], fx[j], conf[j])
                 name = names[k] if names else ""
@@ -298,13 +350,15 @@ def load_data_optical_flow(
     first: int = 0, delta: int = 1, cache_root: Optional[str] = None,
     motion_correction: Optional[str] = "sfm",
     groundtruth: str = "cross-correlation", noise=None, sample_idx=None,
-    device="cuda",
+    device="cuda", mesh=None,
 ) -> Dict[str, list]:
     """Dataset assembly: up to ``n_images`` consecutive (``delta``-strided)
     frames from ``directory/images/``, rectified by ``motion_correction``
     ('sfm' batched, with ``noise``; 'mc' per pair, with ``sample_idx``; or
     None), with GT flow per pair ('sfm' takes ``groundtruth``, the others
-    the exhaustive WTA GT). Returns
+    the exhaustive WTA GT). ``mesh`` splits the batched 'sfm' build and its
+    GT across the mesh's devices (the per-pair 'mc' and None loaders
+    ignore it). Returns
     lists 'images' (currents, plus a trailing frame), 'warped_images',
     'masks' and 'flow' (None for pairs the gate rejected)."""
     dev = resolve(device)
@@ -324,7 +378,8 @@ def load_data_optical_flow(
         names = [f"{first + k * delta:09d}" for k in range(len(frames) - 1)]
         pairs = load_rectified_pairs_batched(geom, cal, frames, cache_root,
                                              names, groundtruth=groundtruth,
-                                             noise=noise, device=dev)
+                                             noise=noise, device=dev,
+                                             mesh=mesh)
         for pair in pairs:
             raw["images"].append(pair.image)
             raw["warped_images"].append(pair.prev_warped)
@@ -663,7 +718,7 @@ def load_polar_pairs_batched(
     h_img: int, w_img: int, h_input: int, w_input: int, w_kernel: int,
     geom_gt: Optional[Geometry] = None, max_flow: Optional[float] = None,
     delta: int = 1, pixel_frames: Optional[List[np.ndarray]] = None,
-    noise=None, device="cuda",
+    noise=None, device="cuda", mesh=None,
 ) -> List[PolarPair]:
     """The polar loader over the consecutive pairs (frames[k], frames[k +
     delta]) in one batched pass (``polar_batch``), then, with ``geom_gt``,
@@ -671,33 +726,46 @@ def load_polar_pairs_batched(
     (``polar_gt_batch``). ``pixel_frames`` (optional, index-aligned with
     ``frames``) supplies the polar pixel images (see ``polar_batch``).
     ``noise``: RANSAC's (64, 8, max_points) Gumbel draw (default
-    ``egomotion.gumbel_noise``, seed 1)."""
+    ``egomotion.gumbel_noise``, seed 1). ``mesh`` (more than one device)
+    splits the polar build (``parallel.mesh.sharded_polar_load_fn``, the
+    same noise on every shard) and the GT's chunks across the mesh."""
     dev = resolve(device)
-    prevs = as_f32(np.stack(frames[:-delta]), dev)
-    imgs = as_f32(np.stack(frames[delta:]), dev)
-    pix_prevs = pix_imgs = None
+    stacks = [np.stack(frames[:-delta]), np.stack(frames[delta:])]
     if pixel_frames is not None:
         if len(pixel_frames) != len(frames):
             raise ValueError("pixel_frames must be index-aligned with "
                              f"frames ({len(pixel_frames)} vs {len(frames)})")
-        pix_prevs = as_f32(np.stack(pixel_frames[:-delta]), dev)
-        pix_imgs = as_f32(np.stack(pixel_frames[delta:]), dev)
+        stacks += [np.stack(pixel_frames[:-delta]),
+                   np.stack(pixel_frames[delta:])]
     if noise is None:
         noise = ego.gumbel_noise(64, cal.sfm.max_points, dev)
-    (p_img, p_prev, p_mask, e2s, n_inl, n_fnd, prev_w, img_s,
-     masks) = polar_batch(prevs, imgs, cal.K, cal.wImg, cal.hImg, h_img,
-                          w_img, h_input, w_input, w_kernel,
-                          cal.sfm.max_points, cal.sfm.points_quality,
-                          as_f32(noise, dev), pix_prevs, pix_imgs)
+    if mesh is not None and mesh.size > 1:
+        from ..parallel import mesh as pm
+        polar_fn = pm.sharded_polar_load_fn(
+            mesh, cal, h_img, w_img, h_input, w_input, w_kernel,
+            clean_pixels=pixel_frames is not None, noise=as_f32(noise, dev))
+        padded = [pm.pad_to_multiple(a.astype(np.float32), mesh.size)
+                  for a in stacks]
+        n_real = padded[0][1]
+        outs = [o.gather(dev)[:n_real]
+                for o in polar_fn(*(a for a, _ in padded))]
+    else:
+        prevs, imgs, *pix = (as_f32(a, dev) for a in stacks)
+        outs = polar_batch(prevs, imgs, cal.K, cal.wImg, cal.hImg, h_img,
+                           w_img, h_input, w_input, w_kernel,
+                           cal.sfm.max_points, cal.sfm.points_quality,
+                           as_f32(noise, dev), *pix)
+    (p_img, p_prev, p_mask, e2s, n_inl, n_fnd, prev_w, img_s, masks) = outs
     n_inl, n_fnd, e2s_np = host(n_inl), host(n_fnd), host(e2s)
-    B = prevs.shape[0]
+    B = len(stacks[0])
     good = [float(n_inl[k]) / max(float(n_fnd[k]), 1.0)
             >= cal.bad_image_threshold for k in range(B)]
 
     gt_polar = gt_mask_polar = None
     if geom_gt is not None:
         fy, fx, conf = gt_mod.exhaustive_flow_batched(geom_gt, prev_w, img_s,
-                                                      chunk=2, device=dev)
+                                                      chunk=2, device=dev,
+                                                      mesh=mesh)
         gt_polar, gt_mask_polar = (host(o) for o in polar_gt_batch(
             as_f32(fy, dev), as_f32(fx, dev), as_f32(conf, dev), masks, e2s,
             h_img, w_img, h_input, w_input, w_kernel,

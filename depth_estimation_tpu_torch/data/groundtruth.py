@@ -105,21 +105,38 @@ def exhaustive_flow(
 @torch.no_grad()
 def exhaustive_flow_batched(
     geom: Geometry, imgs1, imgs2, chunk: int = 8, method: str = "max",
-    device="cuda",
+    device="cuda", mesh=None,
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """exhaustive_flow over a (B, H, W, C) stack of pairs, ``chunk`` pairs
     per batched device pass (``chunk`` bounds the transient cost volume,
-    ~59 MB a pair at 320x180 with a 16x16 window). The reference's ``mesh``
-    argument (sharding over TPU chips) is dropped: its ``parallel/mesh.py``
-    is not ported, and one card runs every chunk."""
+    ~59 MB a pair at 320x180 with a 16x16 window).
+
+    With ``mesh`` (a ``parallel.mesh.Mesh`` of more than one device) each
+    pass is split across the mesh (``sharded_exhaustive_gt_fn``): ``chunk``
+    stays the per-device bound, so a pass covers chunk * mesh size pairs,
+    its tail padded with the last pair to a multiple of the mesh size. Each
+    pair's result is that of the same pass on its device."""
     gg = gt_geometry(geom)
+    sharded_fn = None
+    if mesh is not None and mesh.size > 1:
+        from ..parallel import mesh as pm
+        sharded_fn = pm.sharded_exhaustive_gt_fn(geom, mesh, method)
+        chunk = chunk * mesh.size
     fys, fxs, confs = [], [], []
     for s in range(0, imgs1.shape[0], chunk):
-        fy, fx, conf = _decode_gt(gg, as_f32(imgs1[s:s + chunk], device),
-                                  as_f32(imgs2[s:s + chunk], device), method)
-        fys.append(fy.cpu().numpy())
-        fxs.append(fx.cpu().numpy())
-        confs.append(conf.cpu().numpy())
+        if sharded_fn is not None:
+            a, n = pm.pad_to_multiple(imgs1[s:s + chunk], mesh.size)
+            b, _ = pm.pad_to_multiple(imgs2[s:s + chunk], mesh.size)
+            a = torch.as_tensor(a, dtype=torch.float32)
+            b = torch.as_tensor(b, dtype=torch.float32)
+            fy, fx, conf = (np.asarray(o)[:n] for o in sharded_fn(a, b))
+        else:
+            fy, fx, conf = (o.cpu().numpy() for o in _decode_gt(
+                gg, as_f32(imgs1[s:s + chunk], device),
+                as_f32(imgs2[s:s + chunk], device), method))
+        fys.append(fy)
+        fxs.append(fx)
+        confs.append(conf)
     return (np.concatenate(fys), np.concatenate(fxs), np.concatenate(confs))
 
 

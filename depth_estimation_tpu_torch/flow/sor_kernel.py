@@ -104,12 +104,12 @@ def sor_redblack(w_w, w_e, w_n, w_s, denom_u, denom_v, b1, b2, imdxy,
     neg_alpha = float(np.float32(-alpha))
     om = float(np.float32(omega))
     one_minus = float(np.float32(1 - omega))
-    lib = _kernels.library()
-    with torch.cuda.device(w_w.device):
-        lib.call("sor_redblack_launch", *[p.data_ptr() for p in ops],
-                 du.data_ptr(), dv.data_ptr(), B, H, W, int(n_sor),
-                 neg_alpha, om, one_minus, *sor_plan(H, W))
-    sor_redblack.launches += 1
+    dev = w_w.device
+    _kernels.library().call(
+        "sor_redblack_launch", dev, *[p.data_ptr() for p in ops],
+        du.data_ptr(), dv.data_ptr(), B, H, W, int(n_sor), neg_alpha, om,
+        one_minus, *sor_plan(H, W), dev.index)
+    _kernels.count_launch(sor_redblack, dev)
     return du, dv
 
 
@@ -124,7 +124,6 @@ def sor_barrier_probe(B: int, H: int, W: int, n_sor: int,
     B4 launch (the counter stays)."""
     du = torch.empty((B, H, W), dtype=torch.float32, device=device)
     dv = torch.empty_like(du)
-    lib = _kernels.library()
-    with torch.cuda.device(du.device):
-        lib.call("sor_redblack_probe_launch", du.data_ptr(), dv.data_ptr(),
-                 B, H, W, int(n_sor), *sor_plan(H, W))
+    _kernels.library().call(
+        "sor_redblack_probe_launch", du.device, du.data_ptr(), dv.data_ptr(),
+        B, H, W, int(n_sor), *sor_plan(H, W), du.device.index)

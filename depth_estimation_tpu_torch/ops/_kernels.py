@@ -17,7 +17,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
+from collections import Counter
 from functools import lru_cache
 from pathlib import Path
 
@@ -49,11 +51,11 @@ SIGNATURES = {
     "sor_redblack": {
         # w_w, w_e, w_n, w_s, denom_u, denom_v, b1, b2, imdxy, du, dv, B, H,
         # W, n_sor, neg_alpha, omega, one_minus_omega, cluster, rows, mode,
-        # stream
-        "sor_redblack_launch": [_P] * 11 + [_I] * 4 + [_F] * 3 + [_I] * 3
+        # device, stream
+        "sor_redblack_launch": [_P] * 11 + [_I] * 4 + [_F] * 3 + [_I] * 4
                                + [_P],
-        # du, dv, B, H, W, n_sor, cluster, rows, mode, stream
-        "sor_redblack_probe_launch": [_P, _P] + [_I] * 7 + [_P],
+        # du, dv, B, H, W, n_sor, cluster, rows, mode, device, stream
+        "sor_redblack_probe_launch": [_P, _P] + [_I] * 8 + [_P],
     },
     "match_fast": {
         # f1, f2, idx, ey, ex, pmax, B, H, W, K, maxh, maxw, is_bf16, rx,
@@ -109,17 +111,23 @@ class KernelLibrary:
                 fn.restype = ctypes.c_int
                 self.fns[name] = fn
 
-    def call(self, name: str, *args) -> None:
-        """Call a launcher on PyTorch's current stream and raise on any
-        launch error the C side reports."""
-        stream = torch.cuda.current_stream().cuda_stream
-        err = self.fns[name](*args, stream)
+    def call(self, name: str, device, *args) -> None:
+        """Call a launcher for tensors on ``device``: with that device
+        current (``torch.cuda.device``), on its current stream, and raise on
+        any launch error the C side reports. Kernels for tensors on one card
+        are never queued on another card's stream."""
+        device = torch.device(device)
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = self.fns[name](*args, stream)
         if err != 0:
             raise RuntimeError(f"{name} failed with code {err} "
                                f"({_error_name(err)})")
 
 
 def _error_name(err: int) -> str:
+    if err == -4:
+        return "the tensors' card is not the current device"
     if err < 0:
         return "unsupported configuration"
     return "cudaError %d" % err
@@ -159,10 +167,31 @@ def build() -> KernelLibrary:
     return KernelLibrary(paths, seconds, log)
 
 
+_BUILD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
+# launches by (wrapper name, device), beside each wrapper's own total
+LAUNCHES_BY_DEVICE: Counter = Counter()
+
+
 @lru_cache(maxsize=1)
-def library() -> KernelLibrary:
-    """The process's kernel libraries, built on first use."""
+def _library() -> KernelLibrary:
     return build()
+
+
+def library() -> KernelLibrary:
+    """The process's kernel libraries, built on first use (once, when the
+    shards of a mesh ask from several threads at a time)."""
+    with _BUILD_LOCK:
+        return _library()
+
+
+def count_launch(wrapper, device) -> None:
+    """Add one to ``wrapper.launches`` and to its count on ``device``
+    (``LAUNCHES_BY_DEVICE``); the shards of a mesh launch from several
+    threads."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+        LAUNCHES_BY_DEVICE[(wrapper.__name__, str(device))] += 1
 
 
 def check_cuda_tensor(name: str, t: torch.Tensor, dtypes, ndim: int) -> None:

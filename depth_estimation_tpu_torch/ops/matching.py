@@ -252,16 +252,15 @@ def _match_flow_fused_cuda(f1, f2, maxh, maxw, want_marg, dtype, want_conf,
         extra = torch.empty((B, H, W), device=f1.device)
     if plan.general:        # each row's (max, sum, x-sum)
         scratch = torch.empty((3, B, maxh, H, W), device=f1.device)
-    lib = _kernels.library()
-    with torch.cuda.device(f1.device):
-        lib.call("match_fused_launch", f1.data_ptr(), f2.data_ptr(),
-                 idx.data_ptr(), ey.data_ptr(), ex.data_ptr(), pmax.data_ptr(),
-                 extra.data_ptr() if extra is not None else None,
-                 scratch.data_ptr() if scratch is not None else None,
-                 B, H, W, K, maxh, maxw, plan.block_rows, plan.band_cols,
-                 int(dtype == torch.bfloat16), int(want_marg), int(want_conf),
-                 float(conf_threshold))
-    match_flow_fused.launches += 1
+    _kernels.library().call(
+        "match_fused_launch", f1.device, f1.data_ptr(), f2.data_ptr(),
+        idx.data_ptr(), ey.data_ptr(), ex.data_ptr(), pmax.data_ptr(),
+        extra.data_ptr() if extra is not None else None,
+        scratch.data_ptr() if scratch is not None else None,
+        B, H, W, K, maxh, maxw, plan.block_rows, plan.band_cols,
+        int(dtype == torch.bfloat16), int(want_marg), int(want_conf),
+        float(conf_threshold))
+    _kernels.count_launch(match_flow_fused, f1.device)
     outs = [idx, ey, ex, pmax]
     if extra is not None:
         outs.append(extra)
@@ -590,13 +589,12 @@ def _match_flow_fast_cuda(f1, f2, maxh, maxw, dtype, plan=None):
         raise _unsupported("match_fast", K, DECOMPOSED_MAX_CHANNELS)
     idx = torch.empty((B, H, W), dtype=torch.int32, device=f1.device)
     ey, ex, pmax = (torch.empty((B, H, W), device=f1.device) for _ in range(3))
-    lib = _kernels.library()
-    with torch.cuda.device(f1.device):
-        lib.call("match_fast_launch", f1.data_ptr(), f2.data_ptr(),
-                 idx.data_ptr(), ey.data_ptr(), ex.data_ptr(), pmax.data_ptr(),
-                 B, H, W, K, maxh, maxw, int(dtype == torch.bfloat16),
-                 plan.rx, plan.ry, plan.tx, plan.ty, plan.bh, plan.bw)
-    match_flow_fast.launches += 1
+    _kernels.library().call(
+        "match_fast_launch", f1.device, f1.data_ptr(), f2.data_ptr(),
+        idx.data_ptr(), ey.data_ptr(), ex.data_ptr(), pmax.data_ptr(),
+        B, H, W, K, maxh, maxw, int(dtype == torch.bfloat16),
+        plan.rx, plan.ry, plan.tx, plan.ty, plan.bh, plan.bw)
+    _kernels.count_launch(match_flow_fast, f1.device)
     return idx, ey, ex, pmax
 
 

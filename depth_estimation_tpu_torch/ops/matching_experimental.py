@@ -91,13 +91,12 @@ def _match_flow_throughput_cuda(f1, f2, maxh, maxw, plan=None):
         raise _unsupported("match_throughput", K, DECOMPOSED_MAX_CHANNELS)
     idx = torch.empty((B, H, W), dtype=torch.int32, device=f1.device)
     ey, ex, pmax = (torch.empty((B, H, W), device=f1.device) for _ in range(3))
-    lib = _kernels.library()
-    with torch.cuda.device(f1.device):
-        lib.call("match_throughput_launch", f1.data_ptr(), f2.data_ptr(),
-                 idx.data_ptr(), ey.data_ptr(), ex.data_ptr(), pmax.data_ptr(),
-                 B, H, W, K, maxh, maxw, plan.rx, plan.ry, plan.tx, plan.ty,
-                 plan.bh, plan.bw)
-    match_flow_throughput.launches += 1
+    _kernels.library().call(
+        "match_throughput_launch", f1.device, f1.data_ptr(), f2.data_ptr(),
+        idx.data_ptr(), ey.data_ptr(), ex.data_ptr(), pmax.data_ptr(),
+        B, H, W, K, maxh, maxw, plan.rx, plan.ry, plan.tx, plan.ty,
+        plan.bh, plan.bw)
+    _kernels.count_launch(match_flow_throughput, f1.device)
     return idx, ey, ex, pmax
 
 

@@ -70,12 +70,11 @@ def _banded_bilinear_warp_cuda(imgs: torch.Tensor, xs: torch.Tensor,
         raise ValueError("imgs, xs and ys must be on the same device")
     B, H, W, C = imgs.shape
     out = torch.empty((B, H, W, C), dtype=torch.float32, device=imgs.device)
-    lib = _kernels.library()
-    with torch.cuda.device(imgs.device):
-        lib.call("warp_banded_launch", imgs.data_ptr(), xs.data_ptr(),
-                 ys.data_ptr(), out.data_ptr(), B, H, W, C, int(band),
-                 int(imgs.dtype == torch.bfloat16))
-    banded_bilinear_warp.launches += 1
+    _kernels.library().call(
+        "warp_banded_launch", imgs.device, imgs.data_ptr(), xs.data_ptr(),
+        ys.data_ptr(), out.data_ptr(), B, H, W, C, int(band),
+        int(imgs.dtype == torch.bfloat16))
+    _kernels.count_launch(banded_bilinear_warp, imgs.device)
     return out
 
 

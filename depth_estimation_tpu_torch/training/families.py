@@ -76,7 +76,22 @@ class _NLLTrainer:
         self.learning_rate = learning_rate
         self.learning_rate_decay = learning_rate_decay
         self.batch_size = batch_size
+        self._dp_step = None
         self.reset_optimizer()
+
+    def use_mesh(self, mesh, axis: str = "dp"):
+        """Engage a device mesh (``parallel.mesh.Mesh``): each step splits
+        its batch across the mesh and sums the replicas' gradients onto
+        ``model`` before one update there
+        (``parallel.mesh.sharded_train_step``), as the JAX radial CLI's
+        ``--dp`` step does. The batch size must divide by the mesh size.
+        Returns the trainer."""
+        from ..parallel import mesh as pm
+        if self.batch_size % mesh.size:
+            raise SystemExit(f"batch size {self.batch_size} not divisible by "
+                             f"the {mesh.size}-device mesh")
+        self._dp_step = pm.sharded_train_step(self, mesh, axis, n_batch=3)
+        return self
 
     def init(self, generator: torch.Generator):
         """Random weights from a CPU ``torch.Generator`` and a fresh
@@ -90,19 +105,29 @@ class _NLLTrainer:
                                    self.learning_rate_decay)
         return self
 
-    def step(self, b1: torch.Tensor, b2: torch.Tensor,
-             bt: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """One SGD step on a batch of device tensors. Returns {"loss",
-        "acc"} as device tensors."""
-        self.model.train()
-        self.optimizer.zero_grad(set_to_none=False)
-        logp = self.model.log_scores(b1, b2).reshape(b1.shape[0], -1)
+    def _loss(self, model, b1, b2, bt):
+        """(nll, {"acc"}) of ``model`` (the trainer's model or a replica of
+        it) on one batch."""
+        logp = model.log_scores(b1, b2).reshape(b1.shape[0], -1)
         it = bt.long()
         loss = -logp.gather(1, it[:, None])[:, 0].mean()
-        loss.backward()
+        return loss, {"acc": (logp.argmax(-1) == it).float().mean()}
+
+    def _update(self) -> Dict[str, torch.Tensor]:
         self.optimizer.step()
-        return {"loss": loss.detach(),
-                "acc": (logp.argmax(-1) == it).float().mean()}
+        return {}
+
+    def step(self, b1: torch.Tensor, b2: torch.Tensor,
+             bt: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """One SGD step on a batch of device tensors (split across the mesh
+        after ``use_mesh``). Returns {"loss", "acc"} as device tensors."""
+        if self._dp_step is not None:
+            return self._dp_step(b1, b2, bt)
+        self.model.train()
+        self.optimizer.zero_grad(set_to_none=False)
+        loss, aux = self._loss(self.model, b1, b2, bt)
+        loss.backward()
+        return dict(aux, loss=loss.detach(), **self._update())
 
     def epoch(self, corpus: Tuple, rng: np.random.RandomState) -> Dict:
         """One pass over ``corpus`` = (p1, p2, targets) (numpy or device
@@ -168,13 +193,14 @@ class RadialTrainer(_NLLTrainer):
                    h_input: int = 200, w_input: int = 200,
                    max_flow: Optional[float] = None, scene_length: int = 0,
                    gt_frames: Optional[List[np.ndarray]] = None,
-                   noise=None) -> List[datasets.PolarPair]:
+                   noise=None, mesh=None) -> List[datasets.PolarPair]:
         """The good polar pairs of consecutive ``frames`` (full size),
         with the GT of ``radial_gt_geometry`` saturated at ``max_flow``
         polar rows (default h_win - 1). ``scene_length`` > 0 drops the
         pairs that cross a boundary between scenes of that many frames.
         With ``gt_frames`` (index-aligned), geometry and GT come from
-        them and the pixels from ``frames``."""
+        them and the pixels from ``frames``. ``mesh`` splits the polar
+        build and its GT across the mesh's devices."""
         if gt_frames is not None and len(gt_frames) != len(frames):
             raise ValueError(f"gt_frames are not index-aligned "
                              f"({len(gt_frames)} vs {len(frames)} frames)")
@@ -185,7 +211,7 @@ class RadialTrainer(_NLLTrainer):
             cal.hImg, cal.wImg, h_input, w_input, self.model.w_kernel,
             geom_gt=radial_gt_geometry(cal), max_flow=max_flow,
             pixel_frames=frames if gt_frames is not None else None,
-            noise=noise, device=self.device)
+            noise=noise, device=self.device, mesh=mesh)
         sl = scene_length
         return [p for k, p in enumerate(pairs)
                 if p.good and (not sl or k // sl == (k + 1) // sl)]

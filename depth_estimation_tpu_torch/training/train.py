@@ -296,6 +296,21 @@ class _TrainerBase:
         self.learning = learning
         self.device = next(model.parameters()).device
         self.optimizer: Optional[SGDTorch] = None
+        self._dp_step = None
+        self._mesh_n = 1
+
+    def use_mesh(self, mesh, axis: str = "dp"):
+        """Engage a device mesh (``parallel.mesh.Mesh``): each step splits
+        its batch across the mesh, every shard's replica of the model
+        backpropagates its share of the batch-mean loss, and the gradients
+        are summed onto ``model`` before one guarded update there
+        (``parallel.mesh.sharded_train_step``). Epochs then need a batch
+        size that divides by the mesh size. The CLIs' --dp flag lands
+        here. Returns the trainer."""
+        from ..parallel import mesh as pm
+        self._dp_step = pm.sharded_train_step(self, mesh, axis, n_batch=4)
+        self._mesh_n = mesh.size
+        return self
 
     def init(self, generator: torch.Generator):
         """Random weights from a CPU ``torch.Generator`` and a fresh
@@ -311,23 +326,32 @@ class _TrainerBase:
                                    lrn.rate_decay, lrn.weight_decay)
         return self
 
-    def _loss(self, x1, x2, itarget, soft_t):
+    def _loss(self, model, x1, x2, itarget, soft_t):
+        """(loss, {"acc"}) of ``model`` (the trainer's model or a replica
+        of it) on one batch."""
         raise NotImplementedError
 
     def _inputs(self, ds):
         raise NotImplementedError
 
+    def _update(self) -> Dict[str, torch.Tensor]:
+        """The NaN guard and the optimizer's step on the model's gradients."""
+        return {"grad_ok": guarded_update(list(self.model.parameters()),
+                                          self.optimizer)}
+
     def step(self, x1, x2, itarget, soft_t) -> Dict[str, torch.Tensor]:
-        """One SGD step on a batch of device tensors. Returns {"loss",
-        "acc", "grad_ok"} as device tensors."""
+        """One SGD step on a batch of device tensors (split across the mesh
+        after ``use_mesh``). Returns {"loss", "acc", "grad_ok"} as device
+        tensors."""
         if self.optimizer is None:
             raise RuntimeError("call init() (or reset_optimizer()) first")
+        if self._dp_step is not None:
+            return self._dp_step(x1, x2, itarget, soft_t)
         self.model.train()
         self.optimizer.zero_grad(set_to_none=False)
-        loss, aux = self._loss(x1, x2, itarget, soft_t)
+        loss, aux = self._loss(self.model, x1, x2, itarget, soft_t)
         loss.backward()
-        ok = guarded_update(list(self.model.parameters()), self.optimizer)
-        return dict(aux, loss=loss.detach(), grad_ok=ok)
+        return dict(aux, loss=loss.detach(), **self._update())
 
     def soft_targets(self, targets_yx: torch.Tensor, n: int) -> torch.Tensor:
         """The batch's soft targets (zeros without learning.soft_targets)."""
@@ -341,6 +365,10 @@ class _TrainerBase:
         """One pass over ``ds``. Returns the mean "loss" and "acc", and the
         per-step "losses", "accs" and "grad_ok"."""
         bs = batch_size or self.learning.batch_size
+        if bs % self._mesh_n:
+            raise SystemExit(
+                f"batch size {bs} is not divisible by the {self._mesh_n}-"
+                f"device dp mesh — pick -bs a multiple of {self._mesh_n}")
         n = (len(ds) // bs) * bs
         order = np.arange(n)
         if shuffle_rng is not None:
@@ -375,8 +403,10 @@ class Trainer(_TrainerBase):
                          learning)
         self.loss_fn = make_loss_fn(self.model, learning)
 
-    def _loss(self, x1, x2, itarget, soft_t):
-        return self.loss_fn(x1, x2, itarget, soft_t)
+    def _loss(self, model, x1, x2, itarget, soft_t):
+        fn = (self.loss_fn if model is self.model
+              else make_loss_fn(model, self.learning))
+        return fn(x1, x2, itarget, soft_t)
 
     def _inputs(self, ds: PatchDataset):
         return (torch.as_tensor(ds.patches1, device=self.device),
@@ -394,8 +424,8 @@ class MultiscaleTrainer(_TrainerBase):
         super().__init__(MultiscaleFlowModel(geometry, device=device),
                          learning)
 
-    def _loss(self, crops1, crops2, itarget, soft_t):
-        logp = self.model.forward_fovea_batch(crops1, crops2)
+    def _loss(self, model, crops1, crops2, itarget, soft_t):
+        logp = model.forward_fovea_batch(crops1, crops2)
         it = itarget.long()
         if self.learning.soft_targets:
             t = soft_t / soft_t.sum(-1, keepdim=True).clamp(min=1e-8)

@@ -63,12 +63,13 @@ def test_batched_pipeline_matches_jax(setup, compensation, head):
 
 def test_port_imports_no_jax():
     """Every module of the port imports without jax, flax, msgpack or the
-    JAX package."""
+    JAX package, the mesh layer (parallel/) among them."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import depth_estimation_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        "assert 'depth_estimation_tpu_torch.parallel.mesh' in sys.modules\n"
         "bad = [n for n in ('jax', 'flax', 'msgpack', 'depth_estimation_tpu')\n"
         "       if n in sys.modules]\n"
         "assert not bad, bad\n"
