@@ -70,7 +70,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      ``sample_foveas`` and ``MultiscaleTrainer`` at config3's widths, B=32,
      8 steps, 2 card vs CPU; ``score_epoch``, ``save_model``, and one
      ``BatchedDepthEstimator`` step on the saved checkpoint (B1); then the
-     step times (TF32 off, and a Trainer step with cuDNN's TF32 on), each
+     step times (TF32 off: the trainers set it off themselves), the bare
+     trunk's convolution on the step's patches in f32 and in TF32, each
      step's kernels and device time (torch.profiler), and the loader's
      time for 4 pairs;
  12. the other families' trainers at full width, every kernel count zeroed
@@ -138,12 +139,32 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      published peaks), the `roofline` JSON line, and the contract
      (speed_of_light.contract_failures): every ceiling and every rate of
      P2's sweep within 105% of its published peak, no row above 100% of
-     the measured ceiling.
+     the measured ceiling;
+ 16. the mesh layer on every visible card (see its block below);
+ 17. the launch-plan autotuner (ops/autotune.py), the f32 rule and the
+     NaN scope: at the online program's shape (B=128, car_model, bf16
+     and f32, conf on) every candidate plan of B1 and of B2 (K=10) timed
+     and held bitwise to the default plan (the default to its twin within
+     phase 3's tolerances); ``best_plan``'s winner against the default;
+     a second resolution, in this process and in a new one, answered by
+     the store with no timing; ``BatchedDepthEstimator(match_block=
+     "auto")`` bitwise equal to match_block=8 in fast and 'warp' mode, B1
+     counted around it; a step under torch's default flags (cuDNN TF32
+     on) bitwise equal to the step with TF32 off (ROADMAP C12); the
+     x-flow TF32 would change (the estimator's inner program, which sets
+     no flag, in TF32 against f32, on the 8-distinct-winner streams) and
+     the bare trunk's time in each; ``nan_debug`` naming B1's operator and
+     B2's wrapper on a NaN input, and passing a clean step.
 
 The build's registers and spills are printed for every kernel.
 
-TF32 is switched off for the whole run (cuDNN convolutions and matmuls run
-in full f32), so that the card computes what the CPU reference computes.
+The port's entry points (the estimators, GT generators, the families'
+calls, the trainers and loaders, the CLIs, the mesh's shards) compute in
+full f32 whatever the caller's flags (``utils/precision.full_f32``); the
+script also switches TF32 off for the whole run, for what it calls below
+the entry points (the bare kernels, the trunk, the twins), so that the
+card computes what the CPU reference computes. Phase 17 sets the flags
+itself where it measures what TF32 would change.
 The last three lines are a JSON summary of the kernels (launches on their
 main path, error against the plain version, kernel and plain times, the
 bound from this run's inputs; B1 at bf16; B1, B2 and B5 also their
@@ -1723,16 +1744,21 @@ def phase_training(dev, card, report):
     check(ms_loss_rel <= TOL_TRAIN_LOSS_REL and ms_pdiff <= TOL_TRAIN_PARAM,
           f"multiscale trainer card vs CPU: {ms_loss_rel} {ms_pdiff}")
 
-    # 9. timing, CUDA events, median of 10 after 2 warm-ups (TF32 off, as
-    # for the whole run; the trainer step also with cuDNN's TF32 on, its
-    # default)
+    # 9. timing, CUDA events, median of 10 after 2 warm-ups (TF32 off: the
+    # trainer's step sets it off whatever the caller's flags, so a step
+    # "with cuDNN's TF32 on" is the same step; what TF32 would cost is
+    # timed on the bare trunk's convolution of the step's patches, which
+    # sets no flag)
     soft0 = trainer.soft_targets(yx, TRAIN_B)
     times = {"trainer_step_ms": cuda_ms(lambda: trainer.step(x1, x2, it, soft0),
                                         reps=10, warmup=2)}
-    torch.backends.cudnn.allow_tf32 = True
-    times["trainer_step_tf32_ms"] = cuda_ms(
-        lambda: trainer.step(x1, x2, it, soft0), reps=10, warmup=3)
-    torch.backends.cudnn.allow_tf32 = False
+    with torch.no_grad():
+        times["trunk_patches_ms"] = cuda_ms(
+            lambda: trainer.model.filter(x2), reps=10, warmup=2)
+        torch.backends.cudnn.allow_tf32 = True
+        times["trunk_patches_tf32_ms"] = cuda_ms(
+            lambda: trainer.model.filter(x2), reps=10, warmup=3)
+        torch.backends.cudnn.allow_tf32 = False
     # the same with the collector's live objects frozen: how much of a
     # step is the Python collector walking what earlier phases left alive
     gc.collect()
@@ -3169,6 +3195,313 @@ def phase_parallel(dev, card, geom, params, report):
     return counts, by_device
 
 
+# phase 17: the launch-plan autotuner (ops/autotune.py, the estimator's
+# match_block="auto"), the port's f32 rule at its entry points
+# (utils/precision.py, ROADMAP C12) and the NaN scope (utils/debug.py). At
+# the online program's shape (B=128, car_model, 16x16 window, K=10, conf
+# on) every candidate plan of B1 and of B2 must give the default plan's
+# outputs bit for bit (the default held to its twin within the phase-3
+# tolerances); the store must answer a second resolution, in this process
+# and in a new one, with no timing; the "auto" estimator must equal
+# match_block=8 bitwise in fast and 'warp' mode; a step run with torch's
+# default flags (cuDNN's TF32 on) must equal the step with both flags off.
+# What TF32 would change (the trunk's and LK's convolutions in TF32 through
+# the estimator's inner program, which sets no flag) is measured on the
+# streams whose RANSAC winner is 8 distinct points (C9), beside the 0.1 px
+# budget of the repository's precision policy (bf16 storage on a trained
+# model).
+TF32_BUDGET_PX = 0.1
+AUTOTUNE_RESOLVE = r"""
+import json, sys
+import torch
+from depth_estimation_tpu_torch.ops import autotune
+timed = []
+def timer(fn):
+    timed.append(1)
+    return autotune._default_timer(fn)
+plans = []
+for kernel, dt, f1, f2 in json.loads(sys.argv[1]):
+    plans.append(list(autotune.best_plan(
+        kernel, tuple(f1), tuple(f2), 16, 16, getattr(torch, dt), True,
+        device="cuda:0", timer=timer)))
+print(json.dumps({"timings": len(timed), "plans": plans}))
+"""
+
+
+def phase_autotune(dev, card, geom, params, report):
+    """The autotuner's sweep, store and estimator hook; the f32 rule at
+    the entry points and TF32's x-flow delta (C12); nan_debug on the card.
+    Returns B1's launches on the "auto" estimators' run."""
+    from depth_estimation_tpu_torch import api_batched
+    from depth_estimation_tpu_torch.geometry3d import egomotion
+    from depth_estimation_tpu_torch.geometry3d.calibration import ARDRONE
+    from depth_estimation_tpu_torch.models.flow import crop_features_center
+    from depth_estimation_tpu_torch.ops import autotune, matching
+    from depth_estimation_tpu_torch.utils import debug, precision
+    t_phase = time.perf_counter()
+    out = dict(card=card)
+    g = geom
+    est = api_batched.BatchedDepthEstimator(geom, params, ARDRONE, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    t1, t2 = forward_frames(gen, B_MAIN, dev)
+    with torch.no_grad():
+        f1 = crop_features_center(g, est._prep(t1)[1])
+        f2 = est._prep(t2)[1]
+
+    # 1-2. every candidate against the default plan and the twin, timed
+    def sweep(kernel, dt):
+        if kernel == "fused":
+            def run(plan):
+                return matching._match_flow_fused_cuda(
+                    f1, f2, g.maxh, g.maxw, False, dt, True, 0.11, plan)
+            ref = matching.match_flow_fused_plain(f1, f2, g.maxh, g.maxw,
+                                                  False, dt, True)
+        else:
+            def run(plan):
+                return matching._match_flow_fast_cuda(f1, f2, g.maxh, g.maxw,
+                                                      dt, plan)
+            ref = matching.match_flow_fast_plain(f1, f2, g.maxh, g.maxw, dt)
+        plans = autotune.candidates_for(kernel, g.maxh, g.maxw, f1.shape[-1])
+        want = run(None)
+        torch.cuda.synchronize()
+        flips = (want[0] != ref[0]).float().mean().item()
+        errs = [(a - b).abs().max().item() for a, b in zip(want[1:4], ref[1:4])]
+        check(flips <= TOL_FLIP and max(errs[:2]) <= TOL_FLOW_PX
+              and errs[2] <= TOL_PROB,
+              f"{kernel} {dt}: default plan vs twin: flips {flips}, {errs}")
+        rows = []
+        for plan in plans:
+            got = run(plan)
+            torch.cuda.synchronize()
+            rows.append(dict(
+                plan=list(plan), ms=cuda_ms(lambda: run(plan), reps=5,
+                                            warmup=2),
+                equal_default=all(torch.equal(a, b)
+                                  for a, b in zip(got, want)),
+                equal_twin=all(torch.equal(a, b) for a, b in zip(got, ref)),
+                max_abs_err_twin=max((a.float() - b.float()).abs().max().item()
+                                     for a, b in zip(got, ref))))
+            r = rows[-1]
+            print(f"[{card}] autotune {kernel} {str(dt)[6:]} {plan}: "
+                  f"{r['ms']:.3f} ms, equal to the default plan "
+                  f"{r['equal_default']}, to the twin {r['equal_twin']} "
+                  f"(max abs err {r['max_abs_err_twin']:.2e})", flush=True)
+        return rows
+
+    cands = {}
+    for kernel in ("fused", "fast"):
+        for dt in (torch.bfloat16, torch.float32):
+            cands[f"{kernel}_{str(dt)[6:]}"] = sweep(kernel, dt)
+    out["candidates"] = cands
+
+    # 2-3. best_plan at the main shape: measured once, persisted, and read
+    # back with no timing, in this process and in a new one
+    autotune.store_path().unlink(missing_ok=True)
+    autotune._cache = None
+    autotune._session_only.clear()
+    timed = []
+
+    def timer(fn):
+        t = autotune._default_timer(fn)
+        timed.append(t)
+        return t
+    calls = [(k, dt, list(f1.shape), list(f2.shape))
+             for k in ("fused", "fast") for dt in ("bfloat16", "float32")]
+    winners = {}
+    for kernel, dt, s1, s2 in calls:
+        n0 = len(timed)
+        plan = autotune.best_plan(kernel, s1, s2, g.maxh, g.maxw,
+                                  getattr(torch, dt), True, device=dev,
+                                  timer=timer)
+        ts = timed[n0:]
+        plans = autotune.candidates_for(kernel, g.maxh, g.maxw, s1[-1])
+        check(len(ts) == len(plans), f"{kernel} {dt}: {len(ts)} timings for "
+              f"{len(plans)} candidates")
+        winners[f"{kernel}_{dt}"] = w = dict(
+            winner=list(plan), default=list(plans[0]),
+            winner_ms=min(ts) * 1e3, default_ms=ts[0] * 1e3,
+            winner_is_default=plan == plans[0], timings=len(ts))
+        print(f"[{card}] autotune best_plan {kernel} {dt}: winner "
+              f"{plan} {w['winner_ms']:.3f} ms against the default "
+              f"{plans[0]} {w['default_ms']:.3f} ms ({len(ts)} timings)",
+              flush=True)
+    out["best_plan"] = winners
+    autotune._cache = None
+    n0 = len(timed)
+    again = [list(autotune.best_plan(k, s1, s2, g.maxh, g.maxw,
+                                     getattr(torch, dt), True, device=dev,
+                                     timer=timer))
+             for k, dt, s1, s2 in calls]
+    res = subprocess.run([sys.executable, "-c", AUTOTUNE_RESOLVE,
+                          json.dumps(calls)], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    check(res.returncode == 0, f"resolving in a new process: {res.stderr}")
+    child = json.loads(res.stdout.strip().splitlines()[-1])
+    out["second_resolution"] = dict(timings=len(timed) - n0,
+                                    new_process_timings=child["timings"])
+    print(f"autotune: a second resolution timed {len(timed) - n0} "
+          f"candidates, a new process {child['timings']}", flush=True)
+    want_plans = [w["winner"] for w in winners.values()]
+    check(len(timed) == n0 and again == want_plans,
+          f"second resolution: {len(timed) - n0} timings, {again}")
+    check(child["timings"] == 0 and child["plans"] == want_plans,
+          f"new process: {child}")
+
+    # 4. the "auto" estimator against match_block=8, bitwise
+    counters = {"match_fused": matching.match_flow_fused}
+    for fn in counters.values():
+        fn.launches = 0
+    modes = {"fast": dict(FAST), "warp": dict(compensation="warp")}
+    auto_eq = {}
+    for mode, knobs in modes.items():
+        ests = {}
+        for block in ("auto", 8):
+            knobs["match_block"] = block
+            e = api_batched.BatchedDepthEstimator(geom, params, ARDRONE,
+                                                  device=dev, **knobs)
+            e.reset(t1)
+            ests[block] = [o.cpu() for o in e.next_frames(t2)]
+            if block == "auto":
+                plans = list(e._plans.values())
+        auto_eq[mode] = dict(
+            equal=all(torch.equal(a, b) for a, b in zip(ests["auto"], ests[8])),
+            plan=[list(p) for p in plans])
+        print(f"autotune: {mode} mode, match_block='auto' (B1 plan "
+              f"{auto_eq[mode]['plan']}) equal to match_block=8: "
+              f"{auto_eq[mode]['equal']}", flush=True)
+    b1 = matching.match_flow_fused.launches
+    out["estimator_auto"] = auto_eq
+    check(all(v["equal"] for v in auto_eq.values()), f"auto: {auto_eq}")
+    check(b1 == 4, f"B1 launched {b1} times for 4 auto/fixed steps")
+
+    # 5. C12: a step with torch's default flags equals the step with both
+    # off: the entry point sets its own precision
+    noise = egomotion.gumbel_noise(64, ARDRONE.sfm.max_points, dev)
+    e = api_batched.BatchedDepthEstimator(geom, params, ARDRONE, device=dev,
+                                          ransac_noise=noise)
+    seen = []
+    hook = e.trunk.register_forward_hook(
+        lambda m, i, o: seen.append(precision.tf32_flags()))
+    steps = {}
+    for name, flags in (("torch_defaults", (True, False)),
+                        ("tf32_off", (False, False))):
+        precision._set(*flags)
+        e.reset(t1)
+        steps[name] = [o.cpu() for o in e.next_frames(t2)]
+        check(precision.tf32_flags() == flags, f"flags not restored: {name}")
+    precision._set(False, False)
+    hook.remove()
+    c12_equal = all(torch.equal(a, b) for a, b in
+                    zip(steps["torch_defaults"], steps["tf32_off"]))
+    out["c12_step_equal"] = c12_equal
+    print(f"C12: a 'warp' step under torch's default flags (cuDNN TF32 on) "
+          f"equal to the step with TF32 off: {c12_equal}; the trunk ran "
+          f"under {sorted(set(seen))}", flush=True)
+    check(c12_equal and set(seen) == {(False, False)}, "C12 step")
+
+    # 6. what TF32 would change: the inner program under cuDNN's default
+    delta = {}
+    for mode, knobs in (("warp", dict(compensation="warp")),
+                        ("fast", {k: v for k, v in FAST.items()
+                                  if k != "match_block"})):
+        e = api_batched.BatchedDepthEstimator(
+            geom, params, ARDRONE, device=dev,
+            ransac_noise=egomotion.gumbel_noise(
+                knobs.get("ransac_samples", 64), ARDRONE.sfm.max_points, dev),
+            **knobs)
+        runs = {}
+        with torch.no_grad():
+            for name, flags in (("tf32", (True, False)), ("f32", (False, False))):
+                precision._set(*flags)
+                u1, fe1 = e._prep(t1)
+                res = e._step(u1, fe1, t2)
+                runs[name] = [o.cpu() for o in res[2:]]
+                if name == "f32":
+                    distinct = ego_trace(e, u1, res[0])["distinct"]
+        precision._set(False, False)
+        a, b = runs["tf32"], runs["f32"]
+        held = [i for i in range(B_MAIN) if distinct[i] == 8
+                and bool(a[3][i]) and bool(b[3][i])]
+        check(held, f"C12 {mode}: no item with an 8-distinct winner")
+        sel = (a[1] > 0) & (b[1] > 0)
+        d = torch.cat([(a[0][i] - b[0][i]).abs()[sel[i]] for i in held])
+        delta[mode] = dict(
+            items_held=len(held), items_skipped_c9=B_MAIN - len(held),
+            mean_px=d.mean().item(), p99_px=torch.quantile(d, 0.99).item(),
+            max_px=d.max().item(), budget_px=TF32_BUDGET_PX,
+            good_equal=bool(torch.equal(a[3], b[3])),
+            mask_agreement=((a[1] > 0) == (b[1] > 0)).float().mean().item(),
+            items_exact=sum(bool(torch.equal(a[0][i], b[0][i]))
+                            for i in range(B_MAIN)))
+        r = delta[mode]
+        print(f"[{card}] C12 {mode} mode: x-flow TF32 vs f32 on the "
+              f"{r['items_held']} items with 8-distinct winners: mean "
+              f"{r['mean_px']:.3e} p99 {r['p99_px']:.3e} max "
+              f"{r['max_px']:.3e} px (budget {TF32_BUDGET_PX} px); good "
+              f"equal {r['good_equal']}, mask agreement "
+              f"{r['mask_agreement']:.5f}, {r['items_exact']}/{B_MAIN} items "
+              f"bitwise", flush=True)
+    out["tf32_delta"] = delta
+    # the TF32 cost on the bare trunk convolution (this run: the trunk of
+    # the online program at B=128)
+    with torch.no_grad():
+        u1 = est._prep(t1)[0]
+        tr = {}
+        for name, flags in (("f32", (False, False)), ("tf32", (True, False))):
+            precision._set(*flags)
+            tr[name] = cuda_ms(lambda: est.trunk(u1), reps=5, warmup=2)
+        precision._set(False, False)
+    out["trunk_ms"] = tr
+    print(f"[{card}] C12 the trunk alone, B={B_MAIN}: f32 {tr['f32']:.3f} ms, "
+          f"TF32 {tr['tf32']:.3f} ms", flush=True)
+
+    # 7. nan_debug on the card: a NaN in B1's (and B2's) input is named; a
+    # clean step passes and equals the unchecked step
+    bad = f1[:2].clone()
+    bad[0, 5, 7, 3] = float("nan")
+    named = {}
+    for name, call in (
+            ("match_flow_fused", lambda: matching.match_flow_fused(
+                bad, f2[:2], g.maxh, g.maxw, want_conf=True)),
+            ("kernel B2", lambda: matching.match_flow_fast(
+                bad, f2[:2], g.maxh, g.maxw))):
+        try:
+            with debug.nan_debug():
+                call()
+            named[name] = None
+        except FloatingPointError as err:
+            named[name] = str(err)
+    e = api_batched.BatchedDepthEstimator(geom, params, ARDRONE, device=dev,
+                                          compensation="warp")
+    e.reset(t1[:B_CHECK])
+    plain_step = [o.cpu() for o in e.next_frames(t2[:B_CHECK])]
+    e.reset(t1[:B_CHECK])
+    t0 = time.perf_counter()
+    with debug.nan_debug():
+        checked_step = [o.cpu() for o in e.next_frames(t2[:B_CHECK])]
+    out["nan_debug"] = dict(
+        raised=named, clean_step_equal=all(
+            torch.equal(a, b) for a, b in zip(plain_step, checked_step)),
+        checked_step_s=time.perf_counter() - t0)
+    print(f"nan_debug: {named}; a clean 'warp' step at B={B_CHECK} passes "
+          f"in {out['nan_debug']['checked_step_s']:.2f} s, equal to the "
+          f"unchecked step: {out['nan_debug']['clean_step_equal']}",
+          flush=True)
+    check(all(v is not None and name in v for name, v in named.items()),
+          f"nan_debug: {named}")
+    check(out["nan_debug"]["clean_step_equal"], "nan_debug changed a step")
+
+    # the candidates' checks, after every reading is printed
+    for key, rows in cands.items():
+        check(all(r["equal_default"] for r in rows),
+              f"{key}: a candidate differs from the default plan")
+    out["launches"] = {"match_fused": b1}
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"autotune: phase took {out['seconds']:.1f} s", flush=True)
+    report["autotune"] = out
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check "
@@ -3222,6 +3555,7 @@ def main() -> int:
     p1, p2 = phase_peaks(dev, card, report)
     par_counts, par_by_device = phase_parallel(dev, card, geom, params,
                                                report)
+    tuned = phase_autotune(dev, card, geom, params, report)
 
     def entry(name, fn, src, replaces, row):
         return {"name": fn, "route": "cuda",
@@ -3304,6 +3638,17 @@ def main() -> int:
         k["launches_parallel_phase"] = par_counts.get(key, 0)
         k["launches_parallel_phase_by_device"] = par_by_device.get(
             k["name"], {})
+    # phase 17: B1 through the "auto" estimators; B1's and B2's default
+    # plan against the autotuner's winner at the main shape (bf16)
+    for name, key in (("match_flow_fused", "fused"),
+                      ("match_flow_fast", "fast")):
+        w = tuned["best_plan"][f"{key}_bfloat16"]
+        next(k for k in kernels if k["name"] == name).update(
+            autotune_default_ms=w["default_ms"],
+            autotune_winner_ms=w["winner_ms"],
+            autotune_winner_is_default=w["winner_is_default"])
+    next(k for k in kernels if k["name"] == "match_flow_fused").update(
+        launches_autotune_phase=tuned["launches"]["match_fused"])
     kernels += [p1, p2]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} not launched on its path")

@@ -28,6 +28,7 @@ from .models.filters import ConvFilter
 from .models.io import filter_state_from_jax
 from .ops import extract, matching
 from .utils.device import resolve as resolve_device
+from .utils.precision import full_f32
 from .utils.timer import Timers
 
 
@@ -132,6 +133,7 @@ class DepthEstimator:
         mask_d = torch.where(good, mask_d, torch.zeros_like(mask_d))
         return u, small, feats, full, mask_d, good
 
+    @full_f32()
     def reset(self, first_frame) -> None:
         u, small, feats = self._prep(self._frame(first_frame))
         self.last_im = u
@@ -145,6 +147,7 @@ class DepthEstimator:
         self.last_im, self.last_im_scaled, self.last_filtered = out[:3]
         return out
 
+    @full_f32()
     def next_frame_depth(self, frame, fetch: bool = True):
         """Returns (im_scaled (H, W, C), xflow (H, W), mask (H, W)) as numpy
         arrays, or as device tensors with fetch=False."""
@@ -157,6 +160,7 @@ class DepthEstimator:
                     mask_d.cpu().numpy())
         return small, full[1], mask_d
 
+    @full_f32()
     def next_frame_packed(self, frame) -> torch.Tensor:
         """One device output per frame: (2, hImg, wImg) float16
         [xflow, mask * confidences]."""

@@ -39,6 +39,7 @@ from .models.io import filter_state_from_jax
 from .models.multiscale import avg_downsample
 from .ops import extract, matching
 from .utils.device import resolve as resolve_device
+from .utils.precision import full_f32
 
 
 def depth_from_xflow(xflow: torch.Tensor, w_img: int) -> torch.Tensor:
@@ -61,8 +62,15 @@ class BatchedDepthEstimator:
     ``load_params``). The knobs are the reference's: ``match_dtype`` /
     ``warp_dtype`` / ``state_dtype`` storage types (torch dtypes),
     ``ego_downsample``, ``lk_iters``, ``ransac_samples``, ``warp_band``,
-    ``corner_selector``, ``lk_search``. ``match_block`` is accepted for
-    signature parity and has no effect on the CUDA matcher.
+    ``corner_selector``, ``lk_search``. ``match_block="auto"`` measures
+    kernel B1's launch plans (``ops/autotune.best_plan``) on the live card
+    once per feature shape, storage type and card, during ``reset()`` (or
+    a pipeline's first call) and before any shard's thread starts, and
+    persists the winner, so that later processes start tuned; every plan
+    gives the same outputs. An integer ``match_block`` (the reference's
+    Pallas row blocking) is accepted for signature parity and leaves B1 on
+    its rule's plan (``ops/matching.fused_plan``). On the CPU the plain
+    twin runs and "auto" times nothing.
     ``ransac_noise`` (ransac_samples, 8, n_corners) fixes RANSAC's draw
     noise; by default it comes from a generator seeded 1 on every step, as
     the reference uses one fixed key.
@@ -85,18 +93,17 @@ class BatchedDepthEstimator:
             raise ValueError(f"corner_selector {corner_selector!r}")
         if ego_downsample not in (1, 2, 4):
             raise ValueError(f"ego_downsample {ego_downsample}")
-        if match_block == "auto":
-            # the reference measures Pallas row blockings on the device
-            # (ops/autotune.py, not ported); the CUDA matcher has no such
-            # knob, so 'auto' resolves to the default
-            match_block = 8
-        if int(match_block) <= 0:
+        if match_block != "auto" and int(match_block) <= 0:
             raise ValueError(f"match_block {match_block}")
         self.geometry = geometry
         self.cal = cal
         self.head = head
         self.compensation = compensation
-        self.match_block = int(match_block)
+        self.match_block = (match_block if match_block == "auto"
+                            else int(match_block))
+        # B1's resolved plans by (device, f1 shape, f2 shape), shared with
+        # the replicas of a mesh; empty unless match_block is "auto"
+        self._plans = {}
         self.match_dtype = match_dtype
         self.warp_dtype = warp_dtype
         self.state_dtype = state_dtype
@@ -229,15 +236,16 @@ class BatchedDepthEstimator:
             wmask = ((torch.abs(rot_y) <= margin_y)
                      & (torch.abs(rot_x) <= margin_x)).float()
             f1 = flow_model.crop_features_center(g, last_feats)
+        plan = self._plans.get(self._plan_key(f1, feats))
         if self.head == "mean":
             idx, ey, ex, pmax, confs = matching.match_flow_fused(
-                f1, feats, g.maxh, g.maxw, self.match_block, False,
-                self.match_dtype, True, 0.11)
+                f1, feats, g.maxh, g.maxw, 8, False, self.match_dtype, True,
+                0.11, plan)
             y, x = ey, ex
         else:
             idx, ey, ex, pmax = matching.match_flow_fused(
-                f1, feats, g.maxh, g.maxw, self.match_block, False,
-                self.match_dtype)
+                f1, feats, g.maxh, g.maxw, 8, False, self.match_dtype,
+                plan=plan)
             wy, wx = codecs.decode(g, idx)
             y, x = wy.float(), wx.float()
             confs = torch.ones_like(pmax)
@@ -258,9 +266,32 @@ class BatchedDepthEstimator:
         mask = torch.where(keep, mask, torch.zeros_like(mask))
         return u, feats, xflow, mask, depth_from_xflow(xflow, g.wImg), good
 
+    def _plan_key(self, f1, feats) -> tuple:
+        return (str(f1.device), tuple(f1.shape), tuple(feats.shape))
+
+    def _resolve_plans(self, feats) -> None:
+        """For match_block "auto": B1's fastest plan at each shard's (or
+        the whole batch's) feature shapes, measured on its device in the
+        calling thread (``ops/autotune.best_plan``, persisted)."""
+        if self.match_block != "auto":
+            return
+        from .ops import autotune
+        g = self.geometry
+        for f in (feats if self._mesh is not None else (feats,)):
+            f1 = flow_model.crop_features_center(g, f)
+            key = self._plan_key(f1, f)
+            if key not in self._plans:
+                self._plans[key] = autotune.best_plan(
+                    "fused", tuple(f1.shape), tuple(f.shape), g.maxh, g.maxw,
+                    dtype=self.match_dtype, want_conf=self.head == "mean",
+                    device=f.device)
+
+    @full_f32()
     def reset(self, first_frames) -> None:
         self.last_u, self.last_feats = self._prep(self._frames(first_frames))
+        self._resolve_plans(self.last_feats)
 
+    @full_f32()
     def next_frames(self, frames):
         """Advance every stream by one frame. Returns (xflow, mask, depth,
         good) on the device: (B, hImg, wImg) f32 x3 and (B,) bool."""
@@ -286,11 +317,13 @@ def make_batched_pipeline(geometry: Geometry, cal: Calibration,
                                 match_dtype=match_dtype, **knobs)
     loaded = []
 
+    @full_f32()
     def pipeline(params, frames1, frames2):
         if not loaded or loaded[0] is not params:
             est.load_params(params)
             loaded[:] = [params]
         last_u, last_feats = est._prep(est._frames(frames1))
+        est._resolve_plans(last_feats)      # "auto": once a shape
         return est._step(last_u, last_feats, est._frames(frames2))[2:]
 
     return pipeline

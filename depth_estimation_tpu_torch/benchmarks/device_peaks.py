@@ -40,7 +40,6 @@ and without ``--device cpu`` it raises.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import math
 import subprocess
@@ -51,6 +50,7 @@ import torch
 
 from depth_estimation_tpu_torch.ops import _kernels
 from depth_estimation_tpu_torch.utils.device import resolve
+from depth_estimation_tpu_torch.utils.precision import full_f32
 
 ROOT = Path(__file__).resolve().parents[2]
 OUT_DIR = ROOT / "chiprun_out"
@@ -103,21 +103,6 @@ def sm_clock_under(fn, n):
     torch.cuda.synchronize()
     mhz, watts = out.stdout.strip().splitlines()[0].split(",")
     return {"clocks.sm": float(mhz), "power.draw": float(watts)}
-
-
-@contextlib.contextmanager
-def tf32_off():
-    """cuBLAS and cuDNN in full f32 inside the block; the flags as they
-    were after it."""
-    saved = (torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = saved
 
 
 # ---------------------------------------------------------------------------
@@ -315,7 +300,7 @@ def measure_matmul(dev, out):
     n = SIZES[dev.type]["mm"]
     _probe("tc_bf16_tflops", _matmul_chain(n, torch.bfloat16, dev), 1,
            2.0 * n ** 3, 1e12, dev, out)
-    with tf32_off():
+    with full_f32():
         _probe("matmul_f32_tflops", _matmul_chain(n, torch.float32, dev), 1,
                2.0 * n ** 3, 1e12, dev, out)
 
@@ -399,6 +384,7 @@ def write_json(obj, path) -> str:
     return str(path)
 
 
+@full_f32()
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")

@@ -35,6 +35,7 @@ import torch
 
 from depth_estimation_tpu_torch.benchmarks import device_peaks as dp
 from depth_estimation_tpu_torch.utils.device import resolve
+from depth_estimation_tpu_torch.utils.precision import full_f32
 
 CHAINS = (1, 2, 4, 8)
 WARPS = (dp.FULL_WARPS, 4)
@@ -71,6 +72,7 @@ def probe(dev) -> dict:
             "warps_an_sm": {w: sweep(dev, w) for w in WARPS}}
 
 
+@full_f32()
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")

@@ -48,6 +48,7 @@ import torch
 
 from depth_estimation_tpu_torch.benchmarks import device_peaks as dp
 from depth_estimation_tpu_torch.utils.device import resolve
+from depth_estimation_tpu_torch.utils.precision import full_f32
 
 # H100 SXM published peaks (NVIDIA's data sheet, 700 W): HBM bytes/s, FP32
 # FLOP/s outside the tensor cores, dense bf16 FLOP/s on the tensor cores
@@ -294,7 +295,7 @@ def kernel_rows(dev):
     Wo = W - geom.wKernel + 1
 
     def run_trunk():
-        with torch.no_grad(), dp.tf32_off():
+        with torch.no_grad(), full_f32():
             return trunk(frames)
     rows.append(("conv trunk (car_model, f32, TF32 off)", run_trunk,
                  trunk_flops(CAR_LAYERS, B, H, W), 0,
@@ -332,6 +333,7 @@ def load_peaks(path, dev) -> dict:
     return peaks
 
 
+@full_f32()
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")

@@ -20,6 +20,8 @@ import sys
 import numpy as np
 import torch
 
+from ..utils.precision import full_f32
+
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Legacy direct depth classifier")
@@ -44,6 +46,7 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+@full_f32()
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 

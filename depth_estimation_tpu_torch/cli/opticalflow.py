@@ -22,6 +22,8 @@ import sys
 import numpy as np
 import torch
 
+from ..utils.precision import full_f32
+
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Train the patch-correlation flow model")
@@ -169,6 +171,7 @@ def learning_from_args(args):
     )
 
 
+@full_f32()
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 

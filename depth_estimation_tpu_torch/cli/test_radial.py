@@ -18,6 +18,8 @@ import sys
 
 import torch
 
+from ..utils.precision import full_f32
+
 
 def build_parser():
     p = argparse.ArgumentParser(description="Radial polar depth streaming")
@@ -40,6 +42,7 @@ def build_parser():
     return p
 
 
+@full_f32()
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 

@@ -26,6 +26,8 @@ import subprocess
 import sys
 import time
 
+from ..utils.precision import full_f32
+
 B, H, W, K, WIN, BAND = 128, 150, 290, 10, 16, 8
 TINY = 16                   # the tiny input's feature side
 
@@ -57,6 +59,7 @@ def issue_us(torch, fn, n: int) -> float:
     return (t1 - t0) / n * 1e6
 
 
+@full_f32()
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", required=True,

@@ -28,6 +28,8 @@ import time
 import numpy as np
 import torch
 
+from ..utils.precision import full_f32
+
 
 def cmd_rectify(args) -> int:
     from ..data import images as img_mod
@@ -520,6 +522,7 @@ def cmd_time_matching(args) -> int:
     return 0
 
 
+@full_f32()
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="det-tools-torch")
     sub = p.add_subparsers(dest="cmd", required=True)

@@ -21,6 +21,8 @@ import sys
 import numpy as np
 import torch
 
+from ..utils.precision import full_f32
+
 
 def build_parser():
     p = argparse.ArgumentParser(description="Train the radial polar flow net")
@@ -63,6 +65,7 @@ def build_parser():
     return p
 
 
+@full_f32()
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 

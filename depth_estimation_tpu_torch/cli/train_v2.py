@@ -13,7 +13,10 @@ import sys
 import numpy as np
 import torch
 
+from ..utils.precision import full_f32
 
+
+@full_f32()
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="Train the version2 network")
     p.add_argument("-rd", "--root-directory", default="data/")

@@ -47,6 +47,7 @@ from ..geometry3d import polar as polar_ops
 from ..geometry3d import undistort as undist
 from ..geometry3d.calibration import Calibration
 from ..utils.device import as_f32, host, resolve, true_div
+from ..utils.precision import full_f32
 from . import groundtruth as gt_mod
 from .images import ImageLoader, load_image, scale, scale_batched_device, scale_np
 
@@ -71,6 +72,7 @@ def _bad_pair(geom: Geometry, prev_s, img_s) -> RectifiedPair:
     return RectifiedPair(host(prev_s), host(img_s), z, None, None, False)
 
 
+@full_f32()
 def load_rectified_pair(
     geom: Geometry, cal: Calibration, prev: np.ndarray, img: np.ndarray,
     cache_root: Optional[str] = None, name: str = "",
@@ -125,6 +127,7 @@ def _compute_gt(geom, warped, img_s, cache_root, name, groundtruth, device):
     return gt_mod.exhaustive_flow(geom, warped, img_s, method, device)
 
 
+@full_f32()
 def load_mc_pair(
     geom: Geometry, cal: Calibration, prev: np.ndarray, img: np.ndarray,
     cache_root: Optional[str] = None, name: str = "",
@@ -169,6 +172,7 @@ def load_mc_pair(
     return RectifiedPair(host(warped), host(img_s), host(mask), flow, conf, True)
 
 
+@full_f32()
 def load_plain_pair(
     geom: Geometry, cal: Calibration, prev: np.ndarray, img: np.ndarray,
     cache_root: Optional[str] = None, name: str = "",
@@ -228,6 +232,7 @@ def rectify_batch(prevs: torch.Tensor, imgs: torch.Tensor, K, dist,
     return prev_s, img_s, warped, mask, em.n_inliers, em.n_found
 
 
+@full_f32()
 def load_rectified_pairs_batched(
     geom: Geometry, cal: Calibration, frames: List[np.ndarray],
     cache_root: Optional[str] = None, names: Optional[List[str]] = None,
@@ -345,6 +350,7 @@ def load_rectified_pairs_batched(
     return out
 
 
+@full_f32()
 def load_data_optical_flow(
     geom: Geometry, cal: Calibration, directory: str, n_images: int,
     first: int = 0, delta: int = 1, cache_root: Optional[str] = None,
@@ -535,6 +541,7 @@ class PolarPair:
     polar_gt_mask: Optional[np.ndarray] = None
 
 
+@full_f32()
 def load_polar_pair(
     cal: Calibration, prev: np.ndarray, img: np.ndarray,
     h_img: int, w_img: int, h_input: int, w_input: int, w_kernel: int,
@@ -548,6 +555,7 @@ def load_polar_pair(
         device=device)[0]
 
 
+@full_f32()
 def load_polar_pair_reference(
     cal: Calibration, prev: np.ndarray, img: np.ndarray,
     h_img: int, w_img: int, h_input: int, w_input: int, w_kernel: int,
@@ -713,6 +721,7 @@ def polar_gt_batch(flows_y: torch.Tensor, flows_x: torch.Tensor,
             (warped[..., 1] > 0.99).float())
 
 
+@full_f32()
 def load_polar_pairs_batched(
     cal: Calibration, frames: List[np.ndarray],
     h_img: int, w_img: int, h_input: int, w_input: int, w_kernel: int,
@@ -796,6 +805,7 @@ def smooth_epipole(prev_e2: Optional[np.ndarray], e2: np.ndarray,
     return alpha * e2 + (1 - alpha) * prev_e2
 
 
+@full_f32()
 def generate_polar_training_patches(
     pair: PolarPair, h_patch: int, w_patch: int, h_win: int,
     n: int, rng: np.random.RandomState,

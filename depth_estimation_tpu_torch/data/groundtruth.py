@@ -29,6 +29,7 @@ import torch
 from ..geometry import Geometry
 from ..models import flow as flow_model
 from ..utils.device import as_f32
+from ..utils.precision import full_f32
 
 
 def gt_geometry(geom: Geometry) -> Geometry:
@@ -90,6 +91,7 @@ def _decode_gt(gg: Geometry, img1: torch.Tensor, img2: torch.Tensor,
     return out.full[..., 0, :, :], out.full[..., 1, :, :], outc.full_confidences
 
 
+@full_f32()
 @torch.no_grad()
 def exhaustive_flow(
     geom: Geometry, img1, img2, method: str = "max", device="cuda",
@@ -102,6 +104,7 @@ def exhaustive_flow(
     return fy.cpu().numpy(), fx.cpu().numpy(), conf.cpu().numpy()
 
 
+@full_f32()
 @torch.no_grad()
 def exhaustive_flow_batched(
     geom: Geometry, imgs1, imgs2, chunk: int = 8, method: str = "max",
@@ -153,6 +156,7 @@ def _cache_path(root: str, geom: Geometry, delta: int, name: str,
     )
 
 
+@full_f32()
 @torch.no_grad()
 def liu_flow(
     img1, img2,

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..ops import _kernels
+from ..utils import debug
 
 # CTAs an image, at most: the H100 holds 15 clusters of 8 CTAs at once but
 # only 7 of 16 (one a GPC), so at B=8 a 16-CTA cluster leaves one image
@@ -110,6 +111,7 @@ def sor_redblack(w_w, w_e, w_n, w_s, denom_u, denom_v, b1, b2, imdxy,
         du.data_ptr(), dv.data_ptr(), B, H, W, int(n_sor), neg_alpha, om,
         one_minus, *sor_plan(H, W), dev.index)
     _kernels.count_launch(sor_redblack, dev)
+    debug.check_outputs("sor_redblack (kernel B4)", (du, dv))
     return du, dv
 
 

@@ -19,6 +19,7 @@ from .. import codecs
 from ..geometry import Geometry, Learning
 from ..ops import extract, matching
 from ..utils.device import resolve, true_div
+from ..utils.precision import full_f32
 from .filters import ConvFilter, init_params
 
 
@@ -54,6 +55,7 @@ class FlowModel(nn.Module):
         init_params(self.filter, generator)
         return self
 
+    @full_f32()
     @torch.no_grad()
     def features(self, image: torch.Tensor) -> torch.Tensor:
         """image (..., H, W, Cin) -> (..., H', W', K), for inference."""
@@ -61,6 +63,7 @@ class FlowModel(nn.Module):
 
     # -- training heads (with gradients) -----------------------------------
 
+    @full_f32()
     def costs(self, img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
         """Cost volume of frame pairs (..., H, W, C): (..., H'', W'',
         maxh * maxw) SSD costs."""
@@ -69,14 +72,17 @@ class FlowModel(nn.Module):
         f2 = self.filter(img2)
         return matching.match_ssd(f1, f2, g.maxh, g.maxw)
 
+    @full_f32()
     def log_scores(self, img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
         """Training head of 'max': log softmax(-cost) over the window."""
         return torch.log_softmax(-self.costs(img1, img2), dim=-1)
 
+    @full_f32()
     def scores(self, img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
         """softmax(-cost) over the window."""
         return torch.softmax(-self.costs(img1, img2), dim=-1)
 
+    @full_f32()
     @torch.no_grad()
     def forward_fused(self, img1: torch.Tensor, img2: torch.Tensor):
         """Fused matcher on a frame pair: (idx, ey, ex, pmax), each (..., H'', W'')."""

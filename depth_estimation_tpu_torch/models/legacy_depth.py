@@ -20,6 +20,7 @@ from torch import nn
 from ..ops import matching
 from ..ops.normalization import _local_mean, _window
 from ..utils.device import resolve
+from ..utils.precision import full_f32
 from .filters import DenseConv, init_params, to_nchw, to_nhwc
 
 
@@ -49,6 +50,7 @@ class DepthClassifierCNN(nn.Module):
         init_params(self, generator)
         return self
 
+    @full_f32()
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x (..., H, W, in_channels) -> (..., H', W', n_classes)."""
         lead = x.shape[:-3]
@@ -81,6 +83,7 @@ class LegacyFlowModel(nn.Module):
     def _features(self, patch: torch.Tensor) -> torch.Tensor:
         return torch.tanh(to_nhwc(self.conv(to_nchw(patch)), patch.shape[:-3]))
 
+    @full_f32()
     def costs(self, patch1: torch.Tensor, patch2: torch.Tensor) -> torch.Tensor:
         """(..., H, W, 1) patches -> (..., H'', W'', maxh * maxw) SSD, the
         first patch cropped by the window's halves."""

@@ -36,6 +36,7 @@ from .. import codecs
 from ..geometry import Geometry
 from ..ops import matching
 from ..utils.device import resolve, true_div
+from ..utils.precision import full_f32
 from .filters import ConvFilter, init_params
 from .flow import crop_features_center
 
@@ -260,6 +261,7 @@ class MultiscaleFlowModel(nn.Module):
 
     # -- full-image inference ----------------------------------------------
 
+    @full_f32()
     def forward_full(self, img1: torch.Tensor, img2: torch.Tensor,
                      log: bool = False) -> torch.Tensor:
         """img1, img2 (..., hImg, wImg, C) -> (..., hImg, wImg, n_indices)
@@ -277,6 +279,7 @@ class MultiscaleFlowModel(nn.Module):
 
     # -- fast full-image inference decode ------------------------------------
 
+    @full_f32()
     @torch.no_grad()
     def features_pyramid(self, img1: torch.Tensor, img2: torch.Tensor):
         """Per-scale cropped/full feature pairs [(f1, f2), ...]: stage 1 of
@@ -290,6 +293,7 @@ class MultiscaleFlowModel(nn.Module):
                          self._filter(s)(d2)))
         return outs
 
+    @full_f32()
     @torch.no_grad()
     def decode_from_features(self, feats) -> Tuple[torch.Tensor, torch.Tensor]:
         """Stage 2 of the staged decode: per-scale match + softmax +
@@ -376,6 +380,7 @@ class MultiscaleFlowModel(nn.Module):
         pmax = torch.where(tie, mid_p, bm) / total
         return idx, pmax
 
+    @full_f32()
     @torch.no_grad()
     def decode_full(self, img1: torch.Tensor, img2: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -402,6 +407,7 @@ class MultiscaleFlowModel(nn.Module):
             return idx, pmax
         return self.decode_from_features(self.features_pyramid(img1, img2))
 
+    @full_f32()
     def decode_full_staged(self, imgs1: torch.Tensor, imgs2: torch.Tensor):
         """Throughput path: batched (B, H, W, C) image pairs through the two
         stages (conv pyramid, then match + decode)."""
@@ -409,6 +415,7 @@ class MultiscaleFlowModel(nn.Module):
 
     # -- foveated training path --------------------------------------------
 
+    @full_f32()
     def forward_fovea(self, img1: torch.Tensor, img2: torch.Tensor,
                       y: int, x: int, log: bool = True) -> torch.Tensor:
         """Single fovea at 0-based center (y, x) of (H, W, C) frames: per
@@ -432,6 +439,7 @@ class MultiscaleFlowModel(nn.Module):
         out = middle_removal_concat(g, apply_cascade(g, self.betas, dists))
         return log_eps(out) if log else out
 
+    @full_f32()
     def forward_fovea_batch(self, crops1: torch.Tensor, crops2: torch.Tensor,
                             log: bool = True) -> torch.Tensor:
         """Batched fovea forward over pre-cropped coarsest-scale footprints

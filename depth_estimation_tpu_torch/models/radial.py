@@ -24,6 +24,7 @@ from torch import nn
 
 from ..ops import matching
 from ..utils.device import resolve
+from ..utils.precision import full_f32
 from .filters import DenseConv, init_params, to_nchw, to_nhwc
 
 RadialLayer = Union[str, Tuple[int, int, int, int]]
@@ -86,6 +87,7 @@ class RadialFlowNetwork(nn.Module):
         init_params(self.filter, generator)
         return self
 
+    @full_f32()
     def costs(self, polar_prev: torch.Tensor,
               polar_curr: torch.Tensor) -> torch.Tensor:
         """(..., H, W, C) polar pair -> (..., H', W', hWin) radial costs."""
@@ -95,6 +97,7 @@ class RadialFlowNetwork(nn.Module):
         f_prev = f_prev[..., : f_prev.shape[-3] - self.h_win + 1, :, :]
         return matching.match_ssd_radial(f_prev, f_curr, self.h_win)
 
+    @full_f32()
     def log_scores(self, polar_prev, polar_curr) -> torch.Tensor:
         """Trainer head: log_softmax(-cost) over the hWin classes."""
         return torch.log_softmax(-self.costs(polar_prev, polar_curr), dim=-1)
@@ -108,6 +111,7 @@ class RadialFlowNetwork(nn.Module):
         idx = torch.argmax(logp, dim=-1).to(torch.int32)
         return idx, torch.exp(m) >= threshold
 
+    @full_f32()
     @torch.no_grad()
     def flow(self, polar_prev, polar_curr) -> Tuple[torch.Tensor, torch.Tensor]:
         """Tester decode: WTA radial flow (first argmin over hWin, int32)
@@ -116,6 +120,7 @@ class RadialFlowNetwork(nn.Module):
         return (torch.argmin(costs, dim=-1).to(torch.int32),
                 torch.amin(costs, dim=-1))
 
+    @full_f32()
     def flow_batch(self, polar_prev, polar_curr):
         """Throughput path: batched (B, H, W, C) polar pairs -> batched
         (flow, min_cost); the same computation as ``flow`` with a leading

@@ -16,6 +16,7 @@ from ..geometry import Geometry
 from ..ops import matching
 from ..ops.normalization import spatial_contrastive_normalization
 from ..utils.device import resolve
+from ..utils.precision import full_f32
 from .filters import ConvFilter, init_params
 from .flow import crop_features_center
 
@@ -54,6 +55,7 @@ class V2Network(nn.Module):
         init_params(self.filter, generator)
         return self
 
+    @full_f32()
     def costs(self, img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
         """(..., hImg, wImg, 3) pair -> (..., H'', W'', hWin * wWin) SSD."""
         g = self.geometry
@@ -64,6 +66,7 @@ class V2Network(nn.Module):
         f2 = self.filter(n2)
         return matching.match_ssd(f1, f2, g.maxh, g.maxw)
 
+    @full_f32()
     def log_scores(self, img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
         """Trainer head: log_softmax(-cost) over the window."""
         return torch.log_softmax(-self.costs(img1, img2), dim=-1)

@@ -35,10 +35,11 @@ from __future__ import annotations
 
 import math
 from functools import lru_cache
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..utils import debug
 from . import _kernels
 
 NEG_INF = -3.4e38
@@ -220,6 +221,31 @@ def fused_plan(maxh: int, maxw: int, K: int) -> Optional[FusedPlan]:
 
 # the most channels B1 takes: one cell's halo, K planes, fills 227 KB
 FUSED_MAX_CHANNELS = SMEM_LIMIT // fused_halo_bytes(1, 1, 1)
+# the general kernel's window rows a pass that B1's candidates try
+FUSED_CANDIDATE_ROWS = (16, 8, 4)
+
+
+def fused_candidates(maxh: int, maxw: int, K: int) -> List[FusedPlan]:
+    """Every plan of B1 worth timing for this window and K (the autotuner's
+    candidates, ``ops/autotune.best_plan``): ``fused_plan``'s first, then
+    the general kernel on each of FUSED_CANDIDATE_ROWS window rows a pass
+    (those within maxh) with the widest band of columns whose halo fits in
+    227 KB, and with half of it. Every plan gives the same outputs, bit for
+    bit; they differ in speed. Empty above FUSED_MAX_CHANNELS."""
+    default = fused_plan(maxh, maxw, K)
+    if default is None:
+        return []
+    kc = _round_up(K, GENERAL_KC) or K
+    out = [default]
+    for rows in (r for r in FUSED_CANDIDATE_ROWS if r <= maxh):
+        widest = next((c for c in range(maxw, 0, -1)
+                       if fused_halo_bytes(kc, rows, c) <= SMEM_LIMIT), 0)
+        for cols in (widest, widest // 2):
+            plan = FusedPlan(True, rows, cols,
+                             fused_halo_bytes(kc, rows, cols))
+            if cols and plan not in out:
+                out.append(plan)
+    return out
 
 
 def _unsupported(name: str, K: int, limit: int) -> RuntimeError:
@@ -272,7 +298,10 @@ def _match_flow_fused_cuda(f1, f2, maxh, maxw, want_marg, dtype, want_conf,
 # takes the implementation by the tensors' device: the kernel for CUDA
 # tensors, the plain twin for CPU tensors. Its schema is fixed: the fifth
 # output is the y-marginal (``want_marg``), the confidence gate
-# (``want_conf``) or an empty tensor.
+# (``want_conf``) or an empty tensor. The trailing (general, block_rows,
+# band_cols) name the launch plan (a ``FusedPlan``); block_rows 0, the
+# default, is ``fused_plan``'s choice. An exported program holds them as
+# constants; the plain twin has no plan and ignores them.
 _FusedOut = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
                   torch.Tensor]
 
@@ -283,27 +312,50 @@ def _with_extra(outs, like: torch.Tensor) -> _FusedOut:
     return tuple(outs) + (torch.empty(0, device=like.device),)
 
 
+def _op_plan(maxh: int, maxw: int, K: int, general: bool, block_rows: int,
+             band_cols: int) -> Optional[FusedPlan]:
+    """The operator's plan arguments as a ``FusedPlan`` (None: the
+    default). The unblocked kernel takes the whole window a pass."""
+    if block_rows == 0:
+        return None
+    if not general and (block_rows, band_cols) != (maxh, maxw):
+        raise ValueError(f"the unblocked kernel takes the whole {maxh}x{maxw}"
+                         f" window, not {block_rows}x{band_cols}")
+    kc = (_round_up(K, GENERAL_KC) or K) if general else _round_up(K, FUSED_KC)
+    if kc is None:
+        raise ValueError(f"the unblocked kernel takes K <= {FUSED_KC[-1]}")
+    return FusedPlan(general, block_rows, band_cols,
+                     fused_halo_bytes(kc, block_rows, band_cols))
+
+
 @torch.library.custom_op("depth_estimation_tpu_torch::match_flow_fused",
                          mutates_args=(), device_types="cpu")
 def match_flow_fused_op(f1: torch.Tensor, f2: torch.Tensor, maxh: int,
                         maxw: int, want_marg: bool, bf16: bool,
-                        want_conf: bool, conf_threshold: float) -> _FusedOut:
+                        want_conf: bool, conf_threshold: float,
+                        general: bool = False, block_rows: int = 0,
+                        band_cols: int = 0) -> _FusedOut:
     """B1 on (B, H, W, K) / (B, H + maxh - 1, W + maxw - 1, K) features:
-    (idx, ey, ex, pmax, extra); ``bf16`` selects bf16 feature storage."""
+    (idx, ey, ex, pmax, extra); ``bf16`` selects bf16 feature storage;
+    (general, block_rows, band_cols) the launch plan, ignored here."""
     dtype = torch.bfloat16 if bf16 else torch.float32
     return _with_extra(match_flow_fused_plain(
         f1, f2, maxh, maxw, want_marg, dtype, want_conf, conf_threshold), f1)
 
 
 @match_flow_fused_op.register_kernel("cuda")
-def _(f1, f2, maxh, maxw, want_marg, bf16, want_conf, conf_threshold):
+def _(f1, f2, maxh, maxw, want_marg, bf16, want_conf, conf_threshold,
+      general=False, block_rows=0, band_cols=0):
     dtype = torch.bfloat16 if bf16 else torch.float32
+    plan = _op_plan(maxh, maxw, f1.shape[-1], general, block_rows, band_cols)
     return _with_extra(_match_flow_fused_cuda(
-        f1, f2, maxh, maxw, want_marg, dtype, want_conf, conf_threshold), f1)
+        f1, f2, maxh, maxw, want_marg, dtype, want_conf, conf_threshold,
+        plan), f1)
 
 
 @match_flow_fused_op.register_fake
-def _(f1, f2, maxh, maxw, want_marg, bf16, want_conf, conf_threshold):
+def _(f1, f2, maxh, maxw, want_marg, bf16, want_conf, conf_threshold,
+      general=False, block_rows=0, band_cols=0):
     B, H, W = f1.shape[:3]
     extra = ((B, maxh, H, W) if want_marg else (B, H, W) if want_conf
              else (0,))
@@ -316,6 +368,7 @@ def match_flow_fused(
     f1: torch.Tensor, f2: torch.Tensor, maxh: int, maxw: int,
     block_rows: int = 8, want_marg: bool = False, dtype=torch.float32,
     want_conf: bool = False, conf_threshold: float = 0.11,
+    plan: Optional[FusedPlan] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """Fused match + decode. f1 ([B,] H, W, K), f2 ([B,] H+maxh-1, W+maxw-1, K).
 
@@ -329,7 +382,8 @@ def match_flow_fused(
     ``block_rows`` is accepted for signature parity with the reference and
     has no effect. The work is the operator ``match_flow_fused_op``: CUDA
     tensors go through kernel B1 (counted in ``match_flow_fused.launches``)
-    on ``fused_plan``: every window, and K up to FUSED_MAX_CHANNELS (227,
+    on ``plan`` (one of ``fused_candidates``; default ``fused_plan``, and
+    every plan gives the same outputs): every window, and K up to FUSED_MAX_CHANNELS (227,
     where one window cell's f2 halo fills shared memory; the package's
     configurations use K <= 32), beyond which it raises RuntimeError. CPU
     tensors go through the plain version."""
@@ -347,9 +401,11 @@ def match_flow_fused(
             or f2.shape[3] != f1.shape[3]:
         raise ValueError(f"shapes {tuple(f1.shape)} / {tuple(f2.shape)} do "
                          f"not match a {maxh}x{maxw} window")
+    plan_args = () if plan is None else (
+        bool(plan.general), int(plan.block_rows), int(plan.band_cols))
     outs = match_flow_fused_op(f1, f2, maxh, maxw, want_marg,
                                dtype == torch.bfloat16, want_conf,
-                               float(conf_threshold))
+                               float(conf_threshold), *plan_args)
     outs = outs if want_marg or want_conf else outs[:4]
     if squeeze:
         outs = tuple(a[0] for a in outs)
@@ -444,14 +500,18 @@ def _tiles(K: int, blocking: Tuple[int, int]):
     return [(th, tw) for th, tw in TILES if (tw // rx) * (th // ry) <= cap]
 
 
-def plan_for(maxh: int, maxw: int, K: int,
-             blocking: Tuple[int, int]) -> Optional[MatchPlan]:
-    """The tile for one blocking with the whole window in one band (see
-    TILES), or None where no tile's halo fits in shared memory."""
+def plan_for(maxh: int, maxw: int, K: int, blocking: Tuple[int, int],
+             tile: Optional[Tuple[int, int]] = None) -> Optional[MatchPlan]:
+    """The plan of one blocking with the whole window in one band, on
+    ``tile`` (rows, columns), or by default on the tile TILES' rule picks;
+    None where that tile (or every tile) is not one a block of this
+    blocking may cover or its halo does not fit in shared memory."""
     kc = slot_channels(K)
     rx, ry = blocking
     best = None
     for th, tw in _tiles(K, blocking):
+        if tile is not None and (th, tw) != tuple(tile):
+            continue
         smem = halo_bytes(kc, ry, th, tw, maxh, maxw)
         if smem > SMEM_LIMIT:
             continue
@@ -507,6 +567,25 @@ def match_plan(maxh: int, maxw: int, K: int,
                 smem = halo_bytes(slot_channels(K), ry, th, tw, *band)
                 return MatchPlan(rx, ry, tw // rx, th // ry, smem, *band)
     return None
+
+
+def fast_candidates(maxh: int, maxw: int, K: int) -> List[MatchPlan]:
+    """Every plan of B2 worth timing for this window and K (the autotuner's
+    candidates, ``ops/autotune.best_plan``): ``match_plan``'s first, then
+    each blocking compiled for K's channel bound (BLOCKINGS) on each tile
+    of TILES that a block of it may cover and whose halo, the whole window
+    in one band, fits in 227 KB. Every plan gives the same outputs, bit
+    for bit; they differ in speed. Empty above DECOMPOSED_MAX_CHANNELS."""
+    default = match_plan(maxh, maxw, K)
+    if default is None:
+        return []
+    out = [default]
+    for blocking in BLOCKINGS[channel_bound(K)]:
+        for tile in TILES:
+            plan = plan_for(maxh, maxw, K, blocking, tile)
+            if plan is not None and plan not in out:
+                out.append(plan)
+    return out
 
 
 def _decomposed_channel_limit() -> int:
@@ -595,12 +674,14 @@ def _match_flow_fast_cuda(f1, f2, maxh, maxw, dtype, plan=None):
         B, H, W, K, maxh, maxw, int(dtype == torch.bfloat16),
         plan.rx, plan.ry, plan.tx, plan.ty, plan.bh, plan.bw)
     _kernels.count_launch(match_flow_fast, f1.device)
+    debug.check_outputs("match_flow_fast (kernel B2)", (ey, ex, pmax))
     return idx, ey, ex, pmax
 
 
 def match_flow_fast(
     f1: torch.Tensor, f2: torch.Tensor, maxh: int, maxw: int,
     block_rows: int = 8, dtype=torch.float32,
+    plan: Optional[MatchPlan] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """Norm-decomposed fused matcher: ``match_flow_fused``'s (idx, ey, ex,
     pmax) contract without marginal or gate. f1 ([B,] H, W, K), f2 ([B,]
@@ -610,7 +691,9 @@ def match_flow_fast(
     decomposition rounds apart and the dx-major visit order breaks ties
     differently. ``block_rows`` is accepted for signature parity with the
     reference and has no effect. CUDA tensors go through kernel B2 (counted
-    in ``match_flow_fast.launches``) on ``match_plan``: every window, walked
+    in ``match_flow_fast.launches``) on ``plan`` (one of
+    ``fast_candidates``, all of which give the same outputs; default
+    ``match_plan``): every window, walked
     in bands where its halo does not fit, and K up to
     DECOMPOSED_MAX_CHANNELS (811, where one window cell's halo on the
     smallest tile fills shared memory; the package's configurations use K
@@ -627,7 +710,7 @@ def match_flow_fast(
         raise ValueError(f"shapes {tuple(f1.shape)} / {tuple(f2.shape)} do "
                          f"not match a {maxh}x{maxw} window")
     if f1.is_cuda:
-        outs = _match_flow_fast_cuda(f1, f2, maxh, maxw, dtype)
+        outs = _match_flow_fast_cuda(f1, f2, maxh, maxw, dtype, plan)
     else:
         outs = match_flow_fast_plain(f1, f2, maxh, maxw, dtype)
     if squeeze:

@@ -23,6 +23,7 @@ from typing import Tuple
 
 import torch
 
+from ..utils import debug
 from . import _kernels
 from .matching import (DECOMPOSED_MAX_CHANNELS, NEG_INF, _dot_k_order,
                        _middle, _unsupported, match_plan)
@@ -97,6 +98,7 @@ def _match_flow_throughput_cuda(f1, f2, maxh, maxw, plan=None):
         B, H, W, K, maxh, maxw, plan.rx, plan.ry, plan.tx, plan.ty,
         plan.bh, plan.bw)
     _kernels.count_launch(match_flow_throughput, f1.device)
+    debug.check_outputs("match_flow_throughput (kernel B5)", (ey, ex, pmax))
     return idx, ey, ex, pmax
 
 

@@ -43,6 +43,7 @@ import torch
 from torch import nn
 
 from ..utils.device import host, resolve
+from ..utils.precision import full_f32
 
 
 class Mesh:
@@ -221,8 +222,15 @@ def run_shards(fn: Callable, mesh: Mesh, *shards) -> list:
     its own, so that no card's host reads and launches wait on another's;
     shards that share a card are issued from one thread (two threads
     issuing into one card took twice as long as one), and a CPU mesh, or
-    one card, runs every shard in the calling thread. Returns the results
-    in shard order."""
+    one card, runs every shard in the calling thread. The whole run is one
+    ``full_f32`` scope, entered before any thread starts and left after
+    they all join, so that no shard runs in TF32 while another's scope
+    closes. Returns the results in shard order."""
+    with full_f32():
+        return _run_shards(fn, mesh, *shards)
+
+
+def _run_shards(fn: Callable, mesh: Mesh, *shards) -> list:
     grad = torch.is_grad_enabled()
     out = [None] * mesh.size
 

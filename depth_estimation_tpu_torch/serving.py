@@ -39,6 +39,7 @@ import torch
 from torch import nn
 
 from .utils.device import resolve
+from .utils.precision import full_f32
 
 
 def export_jitted(module: nn.Module, example_args, path: str | None = None) -> bytes:
@@ -67,7 +68,9 @@ def load_exported(path_or_bytes) -> torch.export.ExportedProgram:
     """Deserialize an artifact (a path or its bytes) into a
     ``torch.export.ExportedProgram``; call it with ``.module()(*args)``.
     Registers the package's operators (B1, B3) first; imports neither the
-    model classes nor the checkpoint readers."""
+    model classes nor the checkpoint readers. The artifact records no
+    TF32 setting and runs under its caller's: call it inside
+    ``utils.precision.full_f32()`` to compute as the live program does."""
     from .ops import matching, warp  # noqa: F401  (registers the operators)
     if isinstance(path_or_bytes, (bytes, bytearray)):
         return torch.export.load(io.BytesIO(bytes(path_or_bytes)))
@@ -147,7 +150,7 @@ def export_pipeline_pairs(geometry, params, cal, batch: int,
     .make_batched_pipeline``) with ``params`` held inside: artifact
     signature (B, h, w, 3) uint8 x2 -> (xflow, mask, depth, good).
     ``knobs`` pass through to ``BatchedDepthEstimator`` (compensation,
-    corner_selector, match_dtype, ...). RANSAC's noise is drawn once as the
+    corner_selector, match_dtype, match_block="auto", ...). RANSAC's noise is drawn once as the
     live step draws it (``egomotion.gumbel_noise``, seeded 1), unless
     ``ransac_noise`` is given, and held in the artifact as a constant."""
     from .api_batched import BatchedDepthEstimator
@@ -161,6 +164,9 @@ def export_pipeline_pairs(geometry, params, cal, batch: int,
         est.ransac_noise = ego.gumbel_noise(est.ransac_samples, n, dev)
     h, w = frame_hw
     ex = _examples((batch, h, w, 3), torch.uint8, dev, 2)
+    # match_block "auto": B1's plan resolved on the card before the trace,
+    # which then holds it as the operator's constant arguments
+    est._resolve_plans(est._prep(ex[0])[1])
     return export_jitted(_Pipeline(est), ex, path)
 
 
@@ -281,6 +287,7 @@ def _latest_epoch_payload(model_dir: str, suffix: str) -> bytes:
         return fh.read()
 
 
+@full_f32()
 def cmd_export(args) -> int:
     """`tools export`: write a serving artifact for a trained model dir.
     The model family (single/multiscale flow, radial, version2, legacy

@@ -42,6 +42,7 @@ from ..models import io as mio
 from ..models.legacy_depth import DepthClassifierCNN
 from ..models.radial import RadialFlowNetwork
 from ..models.version2 import V2Network, V2Params
+from ..utils.precision import full_f32
 from .train import sgd_torch
 
 LEGACY_PATCH = 32
@@ -117,6 +118,7 @@ class _NLLTrainer:
         self.optimizer.step()
         return {}
 
+    @full_f32()
     def step(self, b1: torch.Tensor, b2: torch.Tensor,
              bt: torch.Tensor) -> Dict[str, torch.Tensor]:
         """One SGD step on a batch of device tensors (split across the mesh
@@ -129,6 +131,7 @@ class _NLLTrainer:
         loss.backward()
         return dict(aux, loss=loss.detach(), **self._update())
 
+    @full_f32()
     def epoch(self, corpus: Tuple, rng: np.random.RandomState) -> Dict:
         """One pass over ``corpus`` = (p1, p2, targets) (numpy or device
         tensors). Returns the mean "loss" and "acc" (None without a full
@@ -150,6 +153,7 @@ class _NLLTrainer:
     def _save(self, directory: str, epoch: int) -> str:
         raise NotImplementedError
 
+    @full_f32()
     def fit(self, corpus: Tuple, n_epochs: int, rng: np.random.RandomState,
             directory: Optional[str] = None) -> List[Dict]:
         """``n_epochs`` epochs over ``corpus`` (uploaded once), each
@@ -189,6 +193,7 @@ class RadialTrainer(_NLLTrainer):
         m = self.model
         return m.h_kernel + m.h_win - 1, m.w_kernel
 
+    @full_f32()
     def load_pairs(self, cal: Calibration, frames: List[np.ndarray],
                    h_input: int = 200, w_input: int = 200,
                    max_flow: Optional[float] = None, scene_length: int = 0,
@@ -216,6 +221,7 @@ class RadialTrainer(_NLLTrainer):
         return [p for k, p in enumerate(pairs)
                 if p.good and (not sl or k // sl == (k + 1) // sl)]
 
+    @full_f32()
     def sample(self, pairs: List[datasets.PolarPair], n_train_set: int,
                rng: np.random.RandomState) -> Tuple[np.ndarray, ...]:
         """``n_train_set // len(pairs)`` patches from each pair. Returns
@@ -243,6 +249,7 @@ class V2Trainer(_NLLTrainer):
         super().__init__(V2Network(datap, device=device), learning_rate,
                          0.0, batch_size)
 
+    @full_f32()
     def sample(self, cal: Calibration, directory: str, n_images: int,
                n_train_set: int, rng: np.random.RandomState,
                noise=None) -> Tuple[np.ndarray, ...]:
@@ -301,6 +308,7 @@ class DepthClassifierTrainer:
         self.discretizer = disc
         return train_p, train_c, test_p, test_c
 
+    @full_f32()
     def step(self, patches: torch.Tensor,
              classes0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """One SGD step of the mean softmax cross-entropy of the 1x1
@@ -314,12 +322,14 @@ class DepthClassifierTrainer:
         self.optimizer.step()
         return loss.detach(), logits.argmax(-1).detach()
 
+    @full_f32()
     @torch.no_grad()
     def predict(self, patches) -> np.ndarray:
         """0-based classes of (N, 32, 32, 2) patches."""
         x = torch.as_tensor(patches, device=self.device)
         return self.model(x)[:, 0, 0, :].argmax(-1).cpu().numpy()
 
+    @full_f32()
     def epoch(self, train_p, train_c: np.ndarray, test_p, test_c: np.ndarray,
               rng: np.random.RandomState) -> Dict:
         """One shuffled pass over the training set, then the test set's
@@ -349,6 +359,7 @@ class DepthClassifierTrainer:
                 "train_acc": float(np.trace(conf) / max(conf.sum(), 1)),
                 "test_acc": tacc, "confusion": conf, "losses": losses}
 
+    @full_f32()
     def fit(self, train_p, train_c, test_p, test_c, n_epochs: int,
             rng: np.random.RandomState) -> List[Dict]:
         """``n_epochs`` epochs (the training set uploaded once); appends
@@ -383,6 +394,7 @@ class DepthClassifierTrainer:
         tr.history = list(meta.get("score", []))
         return tr
 
+    @full_f32()
     @torch.no_grad()
     def class_map(self, pair: np.ndarray) -> np.ndarray:
         """The per-pixel argmax class (0-based) of one (H, W, 2) pair, the

@@ -32,6 +32,7 @@ from ..geometry import Geometry, Learning
 from ..models import flow as flow_model
 from ..models.multiscale import MultiscaleFlowModel
 from ..utils.device import host
+from ..utils.precision import full_f32
 
 
 # ---------------------------------------------------------------------------
@@ -339,6 +340,7 @@ class _TrainerBase:
         return {"grad_ok": guarded_update(list(self.model.parameters()),
                                           self.optimizer)}
 
+    @full_f32()
     def step(self, x1, x2, itarget, soft_t) -> Dict[str, torch.Tensor]:
         """One SGD step on a batch of device tensors (split across the mesh
         after ``use_mesh``). Returns {"loss", "acc", "grad_ok"} as device
@@ -360,6 +362,7 @@ class _TrainerBase:
             return flow_model.prepare_target(g, self.learning, targets_yx)[1]
         return torch.zeros((n, codecs.n_indices(g)), device=self.device)
 
+    @full_f32()
     def epoch(self, ds, batch_size: Optional[int] = None,
               shuffle_rng: Optional[np.random.RandomState] = None) -> Dict:
         """One pass over ``ds``. Returns the mean "loss" and "acc", and the

@@ -728,3 +728,102 @@ def test_vpu_kernels_refuse_what_they_do_not_take(dev):
         dp.vpu_loop(torch.ones(4, 4, device=dev), "fma", 1)
     with pytest.raises(ValueError):
         dp.vpu_loop(torch.ones(4, dtype=torch.float64, device=dev), "fma", 1)
+
+
+# the autotuner's candidates (ops/autotune.best_plan): every plan of B1 and
+# of B2 gives the default plan's outputs bit for bit, and the twin's as the
+# tests above hold them; the winner is measured once and read back
+CANDIDATE_WINDOWS = [(16, 16, 10), (9, 13, 3), (8, 8, 16), (24, 24, 10)]
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("maxh,maxw,K", CANDIDATE_WINDOWS)
+def test_every_match_fused_candidate_equals_the_default_plan(dev, maxh, maxw,
+                                                             K, dt):
+    f1, f2 = _features(dev, 13, 37, K, maxh, maxw, seed=maxh + K)
+    plans = matching.fused_candidates(maxh, maxw, K)
+    assert len(plans) > 1
+    for marg, conf in ((False, True), (True, False)):
+        want = matching.match_flow_fused(f1, f2, maxh, maxw, 8, marg, dt,
+                                         conf)
+        for plan in plans[1:]:
+            got = matching.match_flow_fused(f1, f2, maxh, maxw, 8, marg, dt,
+                                            conf, plan=plan)
+            torch.cuda.synchronize()
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), plan
+        ref = matching.match_flow_fused_plain(f1, f2, maxh, maxw, marg, dt,
+                                              conf)
+        for a, b in zip(want[1:4], ref[1:4]):
+            assert (a - b).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("maxh,maxw,K", CANDIDATE_WINDOWS)
+def test_every_match_fast_candidate_equals_the_default_plan(dev, maxh, maxw,
+                                                            K, dt):
+    f1, f2 = _features(dev, 13, 70, K, maxh, maxw, seed=maxh + K + 1)
+    plans = matching.fast_candidates(maxh, maxw, K)
+    assert len(plans) > 1
+    want = matching.match_flow_fast(f1, f2, maxh, maxw, 8, dt)
+    for plan in plans[1:]:
+        got = matching.match_flow_fast(f1, f2, maxh, maxw, 8, dt, plan=plan)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), plan
+    _check_decomposed(want, matching.match_flow_fast_plain(
+        f1, f2, maxh, maxw, dt), f1, f2, maxh, maxw, dt)
+
+
+def test_best_plan_measures_once_and_reads_the_store_back(dev, tmp_path,
+                                                          monkeypatch):
+    from depth_estimation_tpu_torch.ops import autotune
+    monkeypatch.setattr(autotune, "store_path",
+                        lambda: tmp_path / "autotune.json")
+    monkeypatch.setattr(autotune, "_cache", None)
+    monkeypatch.setattr(autotune, "_session_only", {})
+    shapes = ((2, 30, 40, 10), (2, 45, 55, 10), 16, 16)
+    timed = []
+
+    def timer(fn):
+        timed.append(1)
+        return autotune._default_timer(fn)
+    for kernel in ("fused", "fast"):
+        plan = autotune.best_plan(kernel, *shapes, torch.bfloat16, True,
+                                  device=dev, timer=timer)
+        assert plan in autotune.candidates_for(kernel, 16, 16, 10)
+    n = len(timed)
+    assert n == 7 + 20
+    autotune._cache = None              # a later process reads the store
+    for kernel in ("fused", "fast"):
+        autotune.best_plan(kernel, *shapes, torch.bfloat16, True, device=dev,
+                           timer=timer)
+    assert len(timed) == n
+
+
+def test_estimator_auto_equals_a_fixed_block_on_the_card(dev, tmp_path,
+                                                          monkeypatch):
+    from depth_estimation_tpu_torch import api_batched
+    from depth_estimation_tpu_torch.geometry import Geometry
+    from depth_estimation_tpu_torch.geometry3d.calibration import ARDRONE
+    from depth_estimation_tpu_torch.models.filters import init_params
+    from depth_estimation_tpu_torch.ops import autotune
+    monkeypatch.setattr(autotune, "store_path",
+                        lambda: tmp_path / "autotune.json")
+    monkeypatch.setattr(autotune, "_cache", None)
+    g = Geometry(hImg=90, wImg=160, layers=((3, 5, 5, 8), (8, 7, 7, 10)),
+                 maxh=16, maxw=16)
+    est = api_batched.BatchedDepthEstimator(g, None, ARDRONE, device=dev,
+                                            match_block="auto")
+    init_params(est.trunk, torch.Generator().manual_seed(0))
+    fixed = api_batched.BatchedDepthEstimator(g, None, ARDRONE, device=dev)
+    fixed.trunk.load_state_dict(est.trunk.state_dict())
+    gen = torch.Generator(device=dev).manual_seed(3)
+    t1 = (255 * torch.rand(4, 480, 640, 3, generator=gen, device=dev)).to(
+        torch.uint8)
+    t2 = torch.roll(t1, 2, dims=2)
+    for e in (est, fixed):
+        e.reset(t1)
+    assert len(est._plans) == 1 and fixed._plans == {}
+    for a, b in zip(est.next_frames(t2), fixed.next_frames(t2)):
+        assert torch.equal(a, b)
