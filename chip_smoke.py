@@ -154,7 +154,25 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      x-flow TF32 would change (the estimator's inner program, which sets
      no flag, in TF32 against f32, on the 8-distinct-winner streams) and
      the bare trunk's time in each; ``nan_debug`` naming B1's operator and
-     B2's wrapper on a NaN input, and passing a clean step.
+     B2's wrapper on a NaN input, and passing a clean step;
+ 18. reduced-precision storage: B1 (conf on) and B2 at B=128, 150x290x10
+     against 165x305x10, 16x16, and B3 at (128, 165, 305, 10), band 8, on
+     f16 and bf16 storage against their twins (WTA indices equal, the
+     floats within phase 3's tolerances), each wrapper launching once,
+     timed (CUDA events, median of 5); the precision table
+     (``depth_estimation_tpu_torch.quality.precision_table``: car_model's
+     B1 and B2 rows in bf16 and f16 and the trunk-in-bf16 rows, the
+     committed multiscale checkpoint's staged decode in bf16 and f16, on
+     the car pair and the warp sequence's held-out pair; B1's and B2's
+     bf16 and f16 rows held at a mean EPE delta of at most 0.1 px, the
+     rest recorded; written to chiprun_out/precision_table.json);
+     config3's staged decode at B=64 in f32, bf16 and f16 (its BASELINE
+     geometry on seeded weights, and the trained checkpoint): ms, EPE
+     delta and WTA agreement; the online program on car_model at B=128,
+     fast mode (bench.py's knobs) and 'warp' mode, with every storage
+     knob in bf16 and in f16 against f32: x-flow mean, p99 and max on the
+     streams whose RANSAC winners are 8 distinct points in both runs,
+     `good` and the masks; no NaN anywhere.
 
 The build's registers and spills are printed for every kernel.
 
@@ -178,7 +196,9 @@ the training CLIs and on the drone loop; P1 and P2 their launches in
 the meter and the sweep, their error against the twins, their ms a
 launch in the meter, the kernel's and the twin's at the check, their
 bound from the
-launch's operations at the published rate, and the rate they measured),
+launch's operations at the published rate, and the rate they measured;
+B1, B2 and B3 also their f16 time, twin time, bound and error at the main
+shape, bf16's time in the same phase, and their launches on phase 18),
 the card, and {"ok": true, "device": {...}}. A longer report goes to
 chiprun_out/chip_smoke_report.json.
 """
@@ -1088,11 +1108,11 @@ def kernel_label(mangled):
     """A short name for a kernel's mangled name: the decomposed matcher's
     template arguments spelled out, other names as they are."""
     import re
-    m = re.search(r"match_decomposed_kernelI(f|13__nv_bfloat16)Lb([01])ELi"
-                  r"(\d+)ELi(\d+)ELi(\d+)E", mangled)
+    m = re.search(r"match_decomposed_kernelI(f|13__nv_bfloat16|6__half)Lb"
+                  r"([01])ELi(\d+)ELi(\d+)ELi(\d+)E", mangled)
     if not m:
         return mangled
-    dt = "f32" if m.group(1) == "f" else "bf16"
+    dt = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16"}[m.group(1)]
     order = "dx-major" if m.group(2) == "1" else "dy-major"
     return (f"match_decomposed<{dt}, {order}, KC={m.group(3)}, "
             f"{m.group(4)}x{m.group(5)}>")
@@ -1134,7 +1154,8 @@ def sass_per_cell(lib, stem, dt, dx_major, kc, rx, ry):
         return None
     out = subprocess.run([tool, "--dump-sass", str(lib.paths[stem])],
                          capture_output=True, text=True, check=True).stdout
-    want = (("If" if dt == torch.float32 else "I13__nv_bfloat16")
+    want = ({torch.float32: "If", torch.bfloat16: "I13__nv_bfloat16",
+             torch.float16: "I6__half"}[dt]
             + f"Lb{int(dx_major)}ELi{kc}ELi{rx}ELi{ry}E")
     blocks, block, inside = [], [], False
     for line in out.splitlines():
@@ -3502,6 +3523,299 @@ def phase_autotune(dev, card, geom, params, report):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: f16 storage in B1, B2 and B3; the trained-model precision table
+# ---------------------------------------------------------------------------
+
+# The repository's precision policy: a reduced-precision option
+# may move a trained model's flow by at most 0.1 px mean EPE against f32.
+# Held here on car_model for B1 and B2 in bf16 and f16 storage, on the
+# repo's car pair and on the warp sequence's held-out pair
+# (``quality.precision_table``); the multiscale rows (the committed
+# checkpoint ``examples/torch_multiscale_model``), the trunk-in-bf16 rows
+# and the online program's deltas are recorded, not held (the policy calls
+# the multiscale bf16 decode a straddler).
+PRECISION_BUDGET_PX = 0.1
+STORAGE_TYPES = (torch.bfloat16, torch.float16)
+
+
+def _kernel_rows(got, ref):
+    """WTA / gate mismatches and the largest float error of a matcher's
+    outputs against its twin's."""
+    flips = (got[0] != ref[0]).float().mean().item()
+    errs = [(a - b).abs().max().item() for a, b in zip(got[1:4], ref[1:4])]
+    conf = (got[4] != ref[4]).float().mean().item() if len(got) > 4 else 0.0
+    return flips, errs, conf
+
+
+def _held_delta(a, b, da, db, B):
+    """x-flow of two (xflow, mask, depth, good) runs on the items whose
+    RANSAC winner is 8 distinct points in both (C9) and good in both;
+    ``finite``: the first run's x-flow and mask finite and its depth free
+    of NaN (zero flow is infinite depth)."""
+    held = [i for i in range(B) if da[i] == 8 and db[i] == 8
+            and bool(a[3][i]) and bool(b[3][i])]
+    sel = (a[1] > 0) & (b[1] > 0)
+    d = (torch.cat([(a[0][i] - b[0][i]).abs()[sel[i]] for i in held])
+         if held else torch.zeros(1))
+    return dict(items_held=len(held), items_skipped_c9=B - len(held),
+                mean_px=d.mean().item(), p99_px=torch.quantile(d, 0.99).item(),
+                max_px=d.max().item(),
+                good_equal=bool(torch.equal(a[3], b[3])),
+                mask_agreement=((a[1] > 0) == (b[1] > 0)).float().mean().item(),
+                finite=bool(torch.isfinite(a[0]).all()
+                            and torch.isfinite(a[1]).all()
+                            and not torch.isnan(a[2]).any()))
+
+
+def _rotation_angle(R):
+    """(B, 3, 3) rotations -> (B,) angles in radians."""
+    tr = R.diagonal(dim1=-2, dim2=-1).sum(-1)
+    return torch.arccos(((tr - 1) / 2).clamp(-1.0, 1.0))
+
+
+@torch.no_grad()
+def phase_precision(dev, card, geom, params, report):
+    """B1, B2 and B3 on f16 storage at the main shapes against their twins
+    (bf16 beside them, timed); the precision table on car_model and the
+    committed multiscale checkpoint; config3's staged decode at B=64 in
+    f32, bf16 and f16; the online program at B=128 with every storage knob
+    in bf16, and in f16, against f32. Returns the kernels' f16 rows and
+    their launches on this phase's program runs."""
+    from depth_estimation_tpu_torch import api_batched, codecs, quality
+    from depth_estimation_tpu_torch.geometry import Geometry
+    from depth_estimation_tpu_torch.geometry3d import egomotion
+    from depth_estimation_tpu_torch.geometry3d import undistort as undist
+    from depth_estimation_tpu_torch.geometry3d.calibration import ARDRONE
+    from depth_estimation_tpu_torch.models import io as mio
+    from depth_estimation_tpu_torch.models import multiscale as ms
+    from depth_estimation_tpu_torch.ops import matching, warp
+    t_phase = time.perf_counter()
+    out = dict(card=card)
+    wrappers = {"match_fused": matching.match_flow_fused,
+                "match_fast": matching.match_flow_fast,
+                "warp_banded": warp.banded_bilinear_warp}
+
+    # 1. the kernels at the main shapes, bf16 and f16, against the twins
+    gen = torch.Generator(device=dev).manual_seed(18)
+    f1 = 0.5 * torch.randn(B_MAIN, 150, 290, 10, generator=gen, device=dev)
+    f2 = 0.5 * torch.randn(B_MAIN, 165, 305, 10, generator=gen, device=dev)
+    Ks = ARDRONE.K.copy()
+    Ks[0] *= 320 / ARDRONE.wImg
+    Ks[1] *= 180 / ARDRONE.hImg
+    yaws = torch.linspace(-0.06, 0.06, B_MAIN)
+    c, s = torch.cos(yaws), torch.sin(yaws)
+    R = torch.zeros(B_MAIN, 3, 3)
+    R[:, 0, 0], R[:, 0, 2], R[:, 1, 1], R[:, 2, 0], R[:, 2, 2] = c, s, 1, -s, c
+    xs, ys = undist.homography_grid(Ks, R.to(dev), 165, 305)
+    imgs = torch.randn(B_MAIN, 165, 305, 10, generator=gen, device=dev)
+    calls = {
+        "match_fused": (
+            lambda dt: matching.match_flow_fused(f1, f2, 16, 16, 8, False, dt,
+                                                 True),
+            lambda dt: matching.match_flow_fused_plain(f1, f2, 16, 16, False,
+                                                       dt, True)),
+        "match_fast": (
+            lambda dt: matching.match_flow_fast(f1, f2, 16, 16, 32, dt),
+            lambda dt: matching.match_flow_fast_plain(f1, f2, 16, 16, dt)),
+    }
+    kern = {}
+    for dt in STORAGE_TYPES:
+        im = imgs.to(dt)
+        calls["warp_banded"] = (
+            lambda dt, im=im: warp.banded_bilinear_warp(im, xs, ys, 8),
+            lambda dt, im=im: warp.banded_bilinear_warp_plain(im, xs, ys, 8))
+        for name, (kernel, plain) in calls.items():
+            n0 = wrappers[name].launches
+            got = kernel(dt)
+            launched = wrappers[name].launches - n0
+            ref = plain(dt)
+            torch.cuda.synchronize()
+            if name == "warp_banded":
+                flips, errs, conf = 0.0, [(got - ref).abs().max().item()], 0.0
+                finite = bool(torch.isfinite(got).all())
+            else:
+                flips, errs, conf = _kernel_rows(got, ref)
+                finite = all(bool(torch.isfinite(o).all()) for o in got[1:])
+            ms_k = cuda_ms(lambda: kernel(dt))
+            ms_p = cuda_ms(lambda: plain(dt), reps=3)
+            kern[f"{name}_{str(dt)[6:]}"] = dict(
+                launched=launched, idx_mismatch=flips, conf_mismatch=conf,
+                max_abs_err=max(errs), finite=finite, ms=ms_k, plain_ms=ms_p)
+            print(f"[{card}] phase 18 {name} {str(dt)[6:]}, B={B_MAIN}: "
+                  f"launched {launched}, idx mismatch {flips:.2e}, conf "
+                  f"mismatch {conf:.2e}, max err {max(errs):.2e}; kernel "
+                  f"{ms_k:.3f} ms, plain {ms_p:.1f} ms", flush=True)
+    f16 = torch.float16
+    out["bounds_f16"] = {
+        "match_fused": matcher_bound(f1.to(f16), f2.to(f16), 16, 16, 5,
+                                     3 * 10 + 5),
+        "match_fast": matcher_bound(f1.to(f16), f2.to(f16), 16, 16, 4,
+                                    2 * 10 + 3 + 7),
+        "warp_banded": bound_ms(*warp_work(imgs.to(f16), xs, ys))}
+    out["kernels"] = kern
+
+    # 2. the precision table: car_model and the committed multiscale
+    # checkpoint, on the car pair and the warp sequence's held-out pair
+    for fn in wrappers.values():
+        fn.launches = 0
+    with tempfile.TemporaryDirectory() as work:
+        t0 = time.perf_counter()
+        table = quality.precision_table(work, device=dev)
+        table_s = time.perf_counter() - t0
+    table_launches = {k: fn.launches for k, fn in wrappers.items()}
+    table["seconds"] = table_s
+    out["precision_table"] = table
+    os.makedirs(os.path.dirname(REPORT), exist_ok=True)
+    with open(os.path.join(os.path.dirname(REPORT),
+                           "precision_table.json"), "w") as f:
+        json.dump(table, f, indent=1)
+    for key in ("bf16_deltas_car_pair", "bf16_deltas_seq_pair"):
+        for row, r in table[key].items():
+            extra = (f", WTA agreement {r['wta_agreement']:.4f}"
+                     if "wta_agreement" in r else "")
+            print(f"[{card}] precision {key[12:]} {row}: mean EPE delta "
+                  f"{r['mean_epe_delta_px']:.4f} p99 "
+                  f"{r['p99_epe_delta_px']:.4f} max "
+                  f"{r['max_epe_delta_px']:.4f} px{extra}", flush=True)
+    sc = table["multiscale_scores"]
+    print(f"precision table: {table_s:.1f} s, launches {table_launches}; "
+          f"the multiscale checkpoint on the held-out pair: full acc "
+          f"{sc['full_acc_analytic']:.4f}, meanDst "
+          f"{sc['meanDst_analytic']:.4f}", flush=True)
+
+    # 3. config3's staged decode at B=64 in f32, bf16 and f16: its BASELINE
+    # geometry on seeded weights (the time A.9 needs), and the committed
+    # trained checkpoint (the EPE on trained weights)
+    ms_geom, _, ms_params, _ = mio.load_model(str(quality.MS_MODEL))
+    models = {"config3": (Geometry(**C3_GEOMETRY), None),
+              "trained_multiscale": (ms_geom, ms_params)}
+    decode = {}
+    for key, (g, tree) in models.items():
+        s1, s2 = working_frames(6, C3_B, g.hImg, g.wImg, dev)
+        base = ms.MultiscaleFlowModel(g, device=dev)
+        if tree is None:
+            base.init(torch.Generator().manual_seed(30))
+        else:
+            mio.load_tree_into(base, tree)
+        runs, rows = {}, {}
+        for dt in (torch.float32,) + STORAGE_TYPES:
+            m = ms.MultiscaleFlowModel(
+                g, decode_dtype=None if dt == torch.float32 else dt,
+                device=dev)
+            m.load_state_dict(base.state_dict())
+            idx, pmax = m.decode_full_staged(s1, s2)
+            wy, wx = codecs.decode(g, idx)
+            runs[dt] = (idx, torch.stack([wy.float(), wx.float()]))
+            check(bool(torch.isfinite(pmax).all()),
+                  f"{key} {dt} staged decode: non-finite pmax")
+            rows[str(dt)[6:]] = dict(
+                ms=cuda_ms(lambda m=m: m.decode_full_staged(s1, s2)))
+        for dt in STORAGE_TYPES:
+            d = torch.sqrt(((runs[dt][1] - runs[torch.float32][1]) ** 2)
+                           .sum(0))
+            rows[str(dt)[6:]].update(
+                mean_epe_delta_px=d.mean().item(),
+                wta_agreement=(runs[dt][0] == runs[torch.float32][0])
+                .float().mean().item())
+        decode[key] = rows
+        print(f"[{card}] {key} staged decode B={C3_B} {g.hImg}x{g.wImg}: "
+              + "; ".join(f"{k} {v['ms']:.2f} ms" + (
+                  f", EPE delta {v['mean_epe_delta_px']:.4f} px, WTA "
+                  f"agreement {v['wta_agreement']:.4f}"
+                  if "wta_agreement" in v else "")
+                          for k, v in rows.items()), flush=True)
+    out["staged_decode"] = decode
+
+    # 4. the online program on car_model, B=128, every storage knob in bf16
+    # and in f16 against the same knobs in f32, fast and 'warp' mode; then
+    # each knob alone, to tell the matcher's share from ego-motion's
+    t1, t2 = forward_frames(torch.Generator(device=dev).manual_seed(19),
+                            B_MAIN, dev)
+    online = {}
+    prog_launches = {k: 0 for k in wrappers}
+    knob_names = ("match_dtype", "warp_dtype", "state_dtype")
+    for mode, knobs in (("fast", {k: v for k, v in FAST.items()
+                                  if not k.endswith("_dtype")}),
+                        ("warp", dict(compensation="warp"))):
+        variants = [("f32", {})]
+        for dt in STORAGE_TYPES:
+            variants.append((f"all_{str(dt)[6:]}",
+                             {k: dt for k in knob_names}))
+            for k in knob_names:
+                if not (mode == "fast" and k == "warp_dtype"):  # no warp
+                    variants.append((f"{k[:-6]}_{str(dt)[6:]}", {k: dt}))
+        res = {}
+        for name, dts in variants:
+            e = api_batched.BatchedDepthEstimator(
+                geom, params, ARDRONE, device=dev,
+                ransac_noise=egomotion.gumbel_noise(
+                    knobs.get("ransac_samples", 64), ARDRONE.sfm.max_points,
+                    dev), **knobs, **dts)
+            for fn in wrappers.values():
+                fn.launches = 0
+            e.reset(t1)
+            u1 = e.last_u
+            o = [x.cpu() for x in e.next_frames(t2)]
+            for k, fn in wrappers.items():
+                prog_launches[k] += fn.launches
+            trace = ego_trace(e, u1, e.last_u)
+            res[name] = (o, trace["distinct"], trace["R"])
+        (b, db, Rb) = res["f32"]
+        for name, _ in variants[1:]:
+            a, da, Ra = res[name]
+            r = _held_delta(a, b, da, db, B_MAIN)
+            r["R_max_diff"] = (Ra - Rb).abs().amax(dim=(1, 2)).max().item()
+            r["R_median_diff"] = (Ra - Rb).abs().amax(dim=(1, 2)) \
+                .median().item()
+            # the frames' true rotation is none (a forward step): each
+            # run's median rotation angle is its error
+            r["R_angle_median"] = _rotation_angle(Ra).median().item()
+            r["R_angle_median_f32"] = _rotation_angle(Rb).median().item()
+            online[f"{mode}_{name}"] = r
+            print(f"[{card}] online {mode} mode, {name} vs f32, B={B_MAIN}, "
+                  f"on the {r['items_held']} items with 8-distinct winners "
+                  f"in both: x-flow mean {r['mean_px']:.4e} p99 "
+                  f"{r['p99_px']:.4e} max {r['max_px']:.4e} px; R max diff "
+                  f"{r['R_max_diff']:.2e} (median {r['R_median_diff']:.2e}), "
+                  f"median rotation angle (truth 0) {r['R_angle_median']:.2e}"
+                  f" rad, f32 {r['R_angle_median_f32']:.2e}; "
+                  f"good equal {r['good_equal']}, mask agreement "
+                  f"{r['mask_agreement']:.5f}, finite {r['finite']}",
+                  flush=True)
+    out["online"] = online
+    launches = {k: table_launches[k] + prog_launches[k] for k in wrappers}
+    out["launches"] = dict(table=table_launches, program=prog_launches,
+                           total=launches)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"precision: launches on this phase's runs {launches}; phase took "
+          f"{out['seconds']:.1f} s", flush=True)
+    report["precision"] = out
+
+    # the checks, after every reading is printed
+    for key, r in kern.items():
+        check(r["launched"] == 1, f"{key}: the wrapper did not launch once")
+        check(r["finite"], f"{key}: non-finite output")
+        if key.startswith("warp_banded"):
+            check(r["max_abs_err"] <= TOL_WARP, f"{key}: {r['max_abs_err']}")
+        else:
+            check(r["idx_mismatch"] == 0 and r["conf_mismatch"] <= TOL_FLIP
+                  and r["max_abs_err"] <= TOL_FLOW_PX,
+                  f"{key} against its twin: {r}")
+    for key in ("bf16_deltas_car_pair", "bf16_deltas_seq_pair"):
+        rows = table[key]
+        check(all(r["finite"] for r in rows.values()), f"{key}: NaN")
+        for row in ("fused_bf16", "fused_f16", "fast_bf16", "fast_f16"):
+            check(rows[row]["mean_epe_delta_px"] <= PRECISION_BUDGET_PX,
+                  f"{key} {row} above the budget: {rows[row]}")
+    check(all(table_launches[k] > 0 for k in ("match_fused", "match_fast")),
+          f"precision table launches {table_launches}")
+    check(all(r["finite"] for r in online.values()), "online: NaN")
+    check(prog_launches["match_fused"] > 0,
+          f"online program launches {prog_launches}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check "
@@ -3556,6 +3870,7 @@ def main() -> int:
     par_counts, par_by_device = phase_parallel(dev, card, geom, params,
                                                report)
     tuned = phase_autotune(dev, card, geom, params, report)
+    prec = phase_precision(dev, card, geom, params, report)
 
     def entry(name, fn, src, replaces, row):
         return {"name": fn, "route": "cuda",
@@ -3649,6 +3964,22 @@ def main() -> int:
             autotune_winner_is_default=w["winner_is_default"])
     next(k for k in kernels if k["name"] == "match_flow_fused").update(
         launches_autotune_phase=tuned["launches"]["match_fused"])
+    # phase 18: B1, B2 and B3 on f16 storage at the main shapes (bf16 timed
+    # beside them in the same phase), and their launches on the precision
+    # table and the online program in reduced precision
+    for name, key in (("match_flow_fused", "match_fused"),
+                      ("match_flow_fast", "match_fast"),
+                      ("banded_bilinear_warp", "warp_banded")):
+        r16 = prec["kernels"][f"{key}_float16"]
+        rb = prec["kernels"][f"{key}_bfloat16"]
+        next(k for k in kernels if k["name"] == name).update(
+            ms_f16=r16["ms"], plain_ms_f16=r16["plain_ms"],
+            bound_ms_f16=prec["bounds_f16"][key][0],
+            max_abs_err_f16=r16["max_abs_err"],
+            idx_mismatch_f16=r16["idx_mismatch"],
+            ms_bf16_precision_phase=rb["ms"],
+            max_abs_err_bf16_precision_phase=rb["max_abs_err"],
+            launches_precision_phase=prec["launches"]["total"][key])
     kernels += [p1, p2]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} not launched on its path")

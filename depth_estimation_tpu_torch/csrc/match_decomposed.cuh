@@ -1,5 +1,5 @@
 // The norm-decomposed patch matcher for Hopper (sm_90a), shared by kernels
-// B2 (match_fast.cu, dx-major, f32 or bf16 storage) and B5
+// B2 (match_fast.cu, dx-major, f32, bf16 or f16 storage) and B5
 // (match_throughput.cu, dy-major, f32): over a maxh x maxw window, the
 // logit t = (2<f1, f2> - |f2|^2) - |f1|^2 (= -SSD), one online softmax over
 // all cells, winner-take-all, soft-argmax and pmax = 1/s, in one pass. The
@@ -40,10 +40,10 @@
 //    128-bit load brings four of them. A quarter-warp's eight lanes form a
 //    (8 / RX) x RX patch of threads and each pair of halo rows is skewed by
 //    one position, which puts the eight lanes' 16-byte loads in eight
-//    different bank groups: no conflicts. bf16 is converted once, while
-//    staging; staging steps a (row, column) pair by the block size without
-//    a division or modulo an element, and the halo's |f2|^2 needs no second
-//    pass.
+//    different bank groups: no conflicts. bf16 and f16 are converted once,
+//    while staging; staging steps a (row, column) pair by the block size
+//    without a division or modulo an element, and the halo's |f2|^2 needs
+//    no second pass.
 //  * The online softmax has no branch: with e = exp(-|t - m|), the twin's
 //    update s exp(m - max) + exp(t - max) (and sy, sx with the offsets)
 //    is s e + 1 when the logit t beats the running max m and s 1 + e
@@ -97,6 +97,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 namespace match_decomposed {
@@ -106,6 +107,7 @@ constexpr size_t SMEM_LIMIT = 227 * 1024;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
 
 // floats a staged position holds: kc channels and |f2|^2, padded to an odd
 // number of float4s

@@ -38,10 +38,10 @@
 //    Registers are capped at 168 a thread so that three 128-thread blocks
 //    share an SM.
 //  * The f2 halo ((8 + maxh - 1) rows x (32 + maxw - 1) columns, padded to
-//    whole column pairs) is staged channel-major as f32: bf16 storage is
-//    converted once while staging, not at every load. Staging walks the
-//    halo with a (row, column) pair that each thread steps by the block
-//    size without integer division or modulo; each column's K channels are
+//    whole column pairs) is staged channel-major as f32: bf16 and f16
+//    storage are converted once while staging, not at every load. Staging
+//    walks the halo with a (row, column) pair that each thread steps by the
+//    block size without integer division or modulo; each column's K channels are
 //    contiguous in the channels-last f2. Staging overlaps compute across
 //    blocks: three blocks share an SM (~44 KB each at K=10, 16x16), so one
 //    block's staging runs while the others compute (no persistent grid).
@@ -80,6 +80,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 namespace {
@@ -97,6 +98,7 @@ constexpr size_t SMEM_LIMIT = 227 * 1024;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
 
 // column pairs a thread walks in one window row, and the halo's padded
 // width: thread tx reads columns R*tx .. R*tx + R*pairs - 1
@@ -640,8 +642,10 @@ int dispatch_k(const void* f1, const void* f2, void* idx, void* ey, void* ex,
 }  // namespace
 
 // Returns 0, a cudaError_t from the launch, or a negative code for a
-// configuration the kernel does not take: -1 for a bad shape or pass plan,
-// -2 for a halo beyond 227 KB of shared memory, -3 for a missing output.
+// configuration the kernel does not take: -1 for a bad shape, pass plan or
+// storage code, -2 for a halo beyond 227 KB of shared memory, -3 for a
+// missing output. f1 and f2 are stored as ``storage`` says: 0 f32, 1 bf16,
+// 2 f16 (each value upcast to f32 as it is staged or loaded).
 // scratch == nullptr takes the unblocked kernel; otherwise the general
 // kernel walks block_rows window rows a pass in bands of band_cols columns
 // (ops/matching.py:fused_plan) and keeps the rows' sums in scratch, three
@@ -650,19 +654,27 @@ extern "C" int match_fused_launch(const void* f1, const void* f2, void* idx,
                                   void* ey, void* ex, void* pmax, void* extra,
                                   void* scratch, int B, int H, int W, int K,
                                   int maxh, int maxw, int block_rows,
-                                  int band_cols, int is_bf16, int want_marg,
+                                  int band_cols, int storage, int want_marg,
                                   int want_conf, float conf_threshold,
                                   void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || K <= 0 || maxh <= 0 || maxw <= 0)
     return -1;
   if ((want_marg || want_conf) && extra == nullptr) return -3;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return dispatch_k<__nv_bfloat16>(f1, f2, idx, ey, ex, pmax, extra, scratch,
-                                     B, H, W, K, maxh, maxw, block_rows,
-                                     band_cols, want_marg, want_conf,
-                                     conf_threshold, st);
-  return dispatch_k<float>(f1, f2, idx, ey, ex, pmax, extra, scratch, B, H, W,
-                           K, maxh, maxw, block_rows, band_cols, want_marg,
-                           want_conf, conf_threshold, st);
+  switch (storage) {
+    case 0:
+      return dispatch_k<float>(f1, f2, idx, ey, ex, pmax, extra, scratch, B,
+                               H, W, K, maxh, maxw, block_rows, band_cols,
+                               want_marg, want_conf, conf_threshold, st);
+    case 1:
+      return dispatch_k<__nv_bfloat16>(f1, f2, idx, ey, ex, pmax, extra,
+                                       scratch, B, H, W, K, maxh, maxw,
+                                       block_rows, band_cols, want_marg,
+                                       want_conf, conf_threshold, st);
+    case 2:
+      return dispatch_k<__half>(f1, f2, idx, ey, ex, pmax, extra, scratch, B,
+                                H, W, K, maxh, maxw, block_rows, band_cols,
+                                want_marg, want_conf, conf_threshold, st);
+  }
+  return -1;
 }

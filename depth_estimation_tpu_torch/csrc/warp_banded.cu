@@ -1,6 +1,7 @@
-// Banded bilinear warp for Hopper (sm_90a): sample imgs (B, H, W, C) at
-// (ys, xs) (B, H, W) with the bilinear hat, zero border, taps clipped to
-// shifts in [-band, band+1] on both axes; f32 output.
+// Banded bilinear warp for Hopper (sm_90a): sample imgs (B, H, W, C), in
+// f32, bf16 or f16, at (ys, xs) (B, H, W) with the bilinear hat, zero
+// border, taps clipped to shifts in [-band, band+1] on both axes; f32
+// output.
 //
 // Replaces the Pallas TPU kernel depth_estimation_tpu/ops/warp.py:38
 // (_banded_kernel, called by banded_bilinear_warp at :85). The Python
@@ -53,6 +54,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <limits.h>
 #include <stdint.h>
 
@@ -64,6 +66,7 @@ constexpr size_t SMEM_LIMIT = 227 * 1024;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
 
 __device__ __forceinline__ float hat(float d, float s) {
   return fmaxf(0.f, __fsub_rn(1.f, fabsf(__fsub_rn(d, s))));
@@ -134,15 +137,42 @@ warp_banded_kernel(const T* __restrict__ img, const float* __restrict__ xs,
   for (int e = tid; e < n; e += seg) dst[e] = seg_out[e];
 }
 
+template <typename T>
+int launch_typed(const void* img, const void* xs, const void* ys, void* out,
+                 int B, int H, int W, int C, int band, int seg, size_t smem,
+                 cudaStream_t st) {
+  if (smem > 48 * 1024) {   // beyond the default, opt in (C above 96)
+    cudaError_t err = cudaFuncSetAttribute(
+        warp_banded_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const size_t image = (size_t)H * W;
+  // the grid's third dimension holds at most 65535 images: launch in chunks
+  for (int b0 = 0; b0 < B; b0 += MAX_GRID_Z) {
+    const int nb = B - b0 < MAX_GRID_Z ? B - b0 : MAX_GRID_Z;
+    dim3 grid((W + seg - 1) / seg, H, nb);
+    warp_banded_kernel<T><<<grid, seg, smem, st>>>(
+        static_cast<const T*>(img) + b0 * image * C,
+        static_cast<const float*>(xs) + b0 * image,
+        static_cast<const float*>(ys) + b0 * image,
+        static_cast<float*>(out) + b0 * image * C, H, W, C, band);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
+}
+
 }  // namespace
 
 // Returns 0, a cudaError_t from the launch, or -1 for a configuration the
 // kernel does not take: an empty tensor, a negative band, more than 65535
-// rows, an image of 2^31 elements or more (tap offsets are 32-bit), or a
-// pixel's C outputs beyond 227 KB of shared memory (C above 58,000).
+// rows, an image of 2^31 elements or more (tap offsets are 32-bit), a
+// pixel's C outputs beyond 227 KB of shared memory (C above 58,000), or a
+// storage code other than 0 (f32), 1 (bf16) and 2 (f16).
 extern "C" int warp_banded_launch(const void* img, const void* xs,
                                   const void* ys, void* out, int B, int H,
-                                  int W, int C, int band, int is_bf16,
+                                  int W, int C, int band, int storage,
                                   void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || band < 0 || H > MAX_GRID_Z ||
       (size_t)H * W * C > (size_t)INT_MAX)
@@ -153,33 +183,17 @@ extern "C" int warp_banded_launch(const void* img, const void* xs,
   while (seg > 1 && (size_t)seg * C * sizeof(float) > SMEM_LIMIT) seg /= 2;
   const size_t smem = (size_t)seg * C * sizeof(float);
   if (smem > SMEM_LIMIT) return -1;
-  cudaError_t err = cudaSuccess;
-  if (smem > 48 * 1024) {   // beyond the default, opt in (C above 96)
-    err = cudaFuncSetAttribute(
-        is_bf16 ? (const void*)warp_banded_kernel<__nv_bfloat16>
-                : (const void*)warp_banded_kernel<float>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t image = (size_t)H * W;
-  // the grid's third dimension holds at most 65535 images: launch in chunks
-  for (int b0 = 0; b0 < B; b0 += MAX_GRID_Z) {
-    const int nb = B - b0 < MAX_GRID_Z ? B - b0 : MAX_GRID_Z;
-    dim3 grid((W + seg - 1) / seg, H, nb);
-    const float* x = static_cast<const float*>(xs) + b0 * image;
-    const float* y = static_cast<const float*>(ys) + b0 * image;
-    float* o = static_cast<float*>(out) + b0 * image * C;
-    if (is_bf16)
-      warp_banded_kernel<__nv_bfloat16><<<grid, seg, smem, st>>>(
-          static_cast<const __nv_bfloat16*>(img) + b0 * image * C, x, y, o, H,
-          W, C, band);
-    else
-      warp_banded_kernel<float><<<grid, seg, smem, st>>>(
-          static_cast<const float*>(img) + b0 * image * C, x, y, o, H, W, C,
-          band);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+  switch (storage) {
+    case 0:
+      return launch_typed<float>(img, xs, ys, out, B, H, W, C, band, seg,
+                                 smem, st);
+    case 1:
+      return launch_typed<__nv_bfloat16>(img, xs, ys, out, B, H, W, C, band,
+                                         seg, smem, st);
+    case 2:
+      return launch_typed<__half>(img, xs, ys, out, B, H, W, C, band, seg,
+                                  smem, st);
   }
-  return 0;
+  return -1;
 }

@@ -57,15 +57,20 @@ class EgoMotion(NamedTuple):
 
 def _to_gray_batched(imgs: torch.Tensor) -> torch.Tensor:
     """(B, H, W[, 3 or 1]) -> (B, H, W) in the input's floating dtype: luma
-    weights rounded to that dtype, products and their channel-order sum in
-    float32, one rounding at the end (the reference's fused reduce)."""
+    weights rounded to that dtype, the channel-order sum of the products
+    in float32, one rounding at the end (the reference's fused reduce).
+    The reference's products stay in float32 for f32 and bf16 input, and
+    are rounded to f16 for f16 input (XLA keeps excess precision for bf16
+    only), so they are here too."""
     if not imgs.is_floating_point():
         imgs = imgs.float()
     if imgs.ndim == 4 and imgs.shape[-1] == 3:
         w = torch.tensor([0.299, 0.587, 0.114], dtype=imgs.dtype).tolist()
         p = imgs.float()
-        return ((p[..., 0] * w[0] + p[..., 1] * w[1])
-                + p[..., 2] * w[2]).to(imgs.dtype)
+        prods = [p[..., c] * w[c] for c in range(3)]
+        if imgs.dtype == torch.float16:
+            prods = [q.half().float() for q in prods]
+        return ((prods[0] + prods[1]) + prods[2]).to(imgs.dtype)
     return imgs[..., 0] if imgs.ndim == 4 else imgs
 
 
@@ -145,7 +150,12 @@ def good_features_to_track_batched(
     iyy = _box_sum(gy * gy, block)
     ixy = _box_sum(gx * gy, block)
     tr = ixx + iyy
-    det = ixx * iyy - ixy * ixy
+    if g.dtype == torch.float16:
+        # the reference's f16 determinant is one fused multiply-add on the
+        # CPU backend: ixx iyy - round(ixy ixy), rounded once
+        det = (ixx.float() * iyy.float() - (ixy * ixy).float()).half()
+    else:
+        det = ixx * iyy - ixy * ixy
     lam_min = tr / 2 - torch.sqrt(torch.clamp(tr * tr / 4 - det, min=0.0))
     B, H, W = g.shape
     b = max(block, 3)

@@ -32,6 +32,21 @@ def random_connection_table(nin: int, nout: int, nto: int,
                      for _ in range(nout)])
 
 
+def _conv(x: torch.Tensor, weight: torch.Tensor,
+          bias: torch.Tensor) -> torch.Tensor:
+    """VALID conv of x (N, C, H, W) in x's dtype, the weight and bias
+    rounded to it. On the CPU a bf16 or f16 input is convolved in f32 on
+    the stored values, the sums rounded to its type, and the bias added in
+    it, as the reference's trunk rounds: oneDNN's reduced-precision CPU
+    convolution returns wrong values at some shapes (bf16, a 12x12 kernel
+    on 8 channels: relative error ~1 with torch 2.13)."""
+    dt = x.dtype
+    if x.device.type == "cpu" and dt in (torch.bfloat16, torch.float16):
+        y = F.conv2d(x.float(), weight.to(dt).float()).to(dt)
+        return y + bias.to(dt)[:, None, None]
+    return F.conv2d(x, weight.to(dt), bias.to(dt))
+
+
 class DenseConv(nn.Module):
     """VALID conv with a (cout, cin, kh, kw) weight and a bias."""
 
@@ -41,7 +56,7 @@ class DenseConv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+        return _conv(x, self.weight, self.bias)
 
 
 class SparseConvMap(nn.Module):
@@ -68,8 +83,7 @@ class SparseConvMap(nn.Module):
         return dense.permute(3, 2, 0, 1).contiguous()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(x, self.dense_kernel().to(x.dtype),
-                        self.bias.to(x.dtype))
+        return _conv(x, self.dense_kernel(), self.bias)
 
 
 class ConvFilter(nn.Module):

@@ -40,12 +40,12 @@ _F = ctypes.c_float
 SIGNATURES = {
     "match_fused": {
         # f1, f2, idx, ey, ex, pmax, extra, scratch, B, H, W, K, maxh, maxw,
-        # block_rows, band_cols, is_bf16, want_marg, want_conf,
+        # block_rows, band_cols, storage, want_marg, want_conf,
         # conf_threshold, stream
         "match_fused_launch": [_P] * 8 + [_I] * 11 + [_F, _P],
     },
     "warp_banded": {
-        # img, xs, ys, out, B, H, W, C, band, is_bf16, stream
+        # img, xs, ys, out, B, H, W, C, band, storage, stream
         "warp_banded_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     },
     "sor_redblack": {
@@ -58,7 +58,7 @@ SIGNATURES = {
         "sor_redblack_probe_launch": [_P, _P] + [_I] * 8 + [_P],
     },
     "match_fast": {
-        # f1, f2, idx, ey, ex, pmax, B, H, W, K, maxh, maxw, is_bf16, rx,
+        # f1, f2, idx, ey, ex, pmax, B, H, W, K, maxh, maxw, storage, rx,
         # ry, tx_n, ty_n, band_h, band_w, stream
         "match_fast_launch": [_P] * 6 + [_I] * 13 + [_P],
     },
@@ -73,6 +73,9 @@ SIGNATURES = {
     },
 }
 SOURCES = tuple(f"{stem}.cu" for stem in SIGNATURES)
+# the ``storage`` code of B1, B2 and B3: the type their features (B3: image)
+# are stored in; every value is upcast to f32 as it is read
+STORAGE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def _nvcc() -> str:

@@ -23,8 +23,8 @@ is the centered displacement ``(dy - halfh1, dx - halfw1)``.
     ``fused_plan`` is B1's.
 
 Numerics of B1, shared by its kernel and plain version, and with the
-reference: features are stored in ``dtype`` (f32 or bf16) and upcast to f32
-before the subtraction; channel sums run in k order; the softmax is
+reference: features are stored in ``dtype`` (f32, bf16 or f16) and upcast to
+f32 before the subtraction; channel sums run in k order; the softmax is
 row-local (each dy row keeps its own running max, sum and x-sum, combined
 at the end, so the row sums are the y-marginal); WTA is the first-occurrence
 argmax of the logit -cost, replaced by the middle (zero-flow) cell when it
@@ -257,12 +257,13 @@ def _unsupported(name: str, K: int, limit: int) -> RuntimeError:
 
 def _match_flow_fused_cuda(f1, f2, maxh, maxw, want_marg, dtype, want_conf,
                            conf_threshold, plan=None):
-    """Kernel B1 on CUDA tensors, on ``plan`` (default: ``fused_plan``)."""
+    """Kernel B1 on CUDA tensors, on ``plan`` (default: ``fused_plan``;
+    the plan is the same for every storage type, since the halo is staged
+    in f32)."""
     f1 = f1.to(dtype).contiguous()
     f2 = f2.to(dtype).contiguous()
-    dts = (torch.float32, torch.bfloat16)
-    _kernels.check_cuda_tensor("f1", f1, dts, 4)
-    _kernels.check_cuda_tensor("f2", f2, dts, 4)
+    _kernels.check_cuda_tensor("f1", f1, tuple(_kernels.STORAGE), 4)
+    _kernels.check_cuda_tensor("f2", f2, tuple(_kernels.STORAGE), 4)
     if f2.device != f1.device:
         raise ValueError("f1 and f2 must be on the same device")
     B, H, W, K = f1.shape
@@ -284,7 +285,7 @@ def _match_flow_fused_cuda(f1, f2, maxh, maxw, want_marg, dtype, want_conf,
         extra.data_ptr() if extra is not None else None,
         scratch.data_ptr() if scratch is not None else None,
         B, H, W, K, maxh, maxw, plan.block_rows, plan.band_cols,
-        int(dtype == torch.bfloat16), int(want_marg), int(want_conf),
+        _kernels.STORAGE[dtype], int(want_marg), int(want_conf),
         float(conf_threshold))
     _kernels.count_launch(match_flow_fused, f1.device)
     outs = [idx, ey, ex, pmax]
@@ -296,14 +297,25 @@ def _match_flow_fused_cuda(f1, f2, maxh, maxw, want_marg, dtype, want_conf,
 # B1 as the operator ``depth_estimation_tpu_torch::match_flow_fused``, so that
 # torch.export keeps it as one node of an exported program. The dispatcher
 # takes the implementation by the tensors' device: the kernel for CUDA
-# tensors, the plain twin for CPU tensors. Its schema is fixed: the fifth
-# output is the y-marginal (``want_marg``), the confidence gate
-# (``want_conf``) or an empty tensor. The trailing (general, block_rows,
+# tensors, the plain twin for CPU tensors. Its schema is fixed: ``storage``
+# is the features' storage code (``_kernels.STORAGE``: 0 f32, 1 bf16, 2
+# f16); the fifth output is the y-marginal (``want_marg``), the confidence
+# gate (``want_conf``) or an empty tensor. The trailing (general, block_rows,
 # band_cols) name the launch plan (a ``FusedPlan``); block_rows 0, the
 # default, is ``fused_plan``'s choice. An exported program holds them as
 # constants; the plain twin has no plan and ignores them.
 _FusedOut = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
                   torch.Tensor]
+
+
+STORAGE_DTYPES = {code: dt for dt, code in _kernels.STORAGE.items()}
+
+
+def _storage_dtype(storage: int) -> torch.dtype:
+    if storage not in STORAGE_DTYPES:
+        raise ValueError(f"storage code {storage}: 0 (f32), 1 (bf16) or 2 "
+                         "(f16)")
+    return STORAGE_DTYPES[storage]
 
 
 def _with_extra(outs, like: torch.Tensor) -> _FusedOut:
@@ -331,22 +343,23 @@ def _op_plan(maxh: int, maxw: int, K: int, general: bool, block_rows: int,
 @torch.library.custom_op("depth_estimation_tpu_torch::match_flow_fused",
                          mutates_args=(), device_types="cpu")
 def match_flow_fused_op(f1: torch.Tensor, f2: torch.Tensor, maxh: int,
-                        maxw: int, want_marg: bool, bf16: bool,
+                        maxw: int, want_marg: bool, storage: int,
                         want_conf: bool, conf_threshold: float,
                         general: bool = False, block_rows: int = 0,
                         band_cols: int = 0) -> _FusedOut:
     """B1 on (B, H, W, K) / (B, H + maxh - 1, W + maxw - 1, K) features:
-    (idx, ey, ex, pmax, extra); ``bf16`` selects bf16 feature storage;
-    (general, block_rows, band_cols) the launch plan, ignored here."""
-    dtype = torch.bfloat16 if bf16 else torch.float32
+    (idx, ey, ex, pmax, extra); ``storage`` the feature storage code (0
+    f32, 1 bf16, 2 f16); (general, block_rows, band_cols) the launch plan,
+    ignored here."""
     return _with_extra(match_flow_fused_plain(
-        f1, f2, maxh, maxw, want_marg, dtype, want_conf, conf_threshold), f1)
+        f1, f2, maxh, maxw, want_marg, _storage_dtype(storage), want_conf,
+        conf_threshold), f1)
 
 
 @match_flow_fused_op.register_kernel("cuda")
-def _(f1, f2, maxh, maxw, want_marg, bf16, want_conf, conf_threshold,
+def _(f1, f2, maxh, maxw, want_marg, storage, want_conf, conf_threshold,
       general=False, block_rows=0, band_cols=0):
-    dtype = torch.bfloat16 if bf16 else torch.float32
+    dtype = _storage_dtype(storage)
     plan = _op_plan(maxh, maxw, f1.shape[-1], general, block_rows, band_cols)
     return _with_extra(_match_flow_fused_cuda(
         f1, f2, maxh, maxw, want_marg, dtype, want_conf, conf_threshold,
@@ -354,8 +367,9 @@ def _(f1, f2, maxh, maxw, want_marg, bf16, want_conf, conf_threshold,
 
 
 @match_flow_fused_op.register_fake
-def _(f1, f2, maxh, maxw, want_marg, bf16, want_conf, conf_threshold,
+def _(f1, f2, maxh, maxw, want_marg, storage, want_conf, conf_threshold,
       general=False, block_rows=0, band_cols=0):
+    _storage_dtype(storage)
     B, H, W = f1.shape[:3]
     extra = ((B, maxh, H, W) if want_marg else (B, H, W) if want_conf
              else (0,))
@@ -378,7 +392,8 @@ def match_flow_fused(
     normalized y-marginal ([B,] maxh, H, W); ``want_conf`` appends the
     'mean'-head confidence gate ([B,] H, W) f32 0/1 (max_dy marginal >
     conf_threshold). The two are mutually exclusive. ``dtype`` is the
-    feature storage type (f32 or bf16); accumulation is f32.
+    feature storage type (f32, bf16 or f16; anything else raises
+    ValueError); accumulation is f32.
     ``block_rows`` is accepted for signature parity with the reference and
     has no effect. The work is the operator ``match_flow_fused_op``: CUDA
     tensors go through kernel B1 (counted in ``match_flow_fused.launches``)
@@ -389,8 +404,8 @@ def match_flow_fused(
     tensors go through the plain version."""
     if want_marg and want_conf:
         raise ValueError("want_marg and want_conf are mutually exclusive")
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"dtype {dtype}: f32 or bf16 storage")
+    if dtype not in _kernels.STORAGE:
+        raise ValueError(f"dtype {dtype}: f32, bf16 or f16 storage")
     squeeze = f1.ndim == 3
     if squeeze:
         f1, f2 = f1[None], f2[None]
@@ -404,7 +419,7 @@ def match_flow_fused(
     plan_args = () if plan is None else (
         bool(plan.general), int(plan.block_rows), int(plan.band_cols))
     outs = match_flow_fused_op(f1, f2, maxh, maxw, want_marg,
-                               dtype == torch.bfloat16, want_conf,
+                               _kernels.STORAGE[dtype], want_conf,
                                float(conf_threshold), *plan_args)
     outs = outs if want_marg or want_conf else outs[:4]
     if squeeze:
@@ -654,12 +669,13 @@ def match_flow_fast_plain(f1, f2, maxh: int, maxw: int, dtype=torch.float32):
 
 
 def _match_flow_fast_cuda(f1, f2, maxh, maxw, dtype, plan=None):
-    """Kernel B2 on CUDA tensors, on ``plan`` (default: ``match_plan``)."""
+    """Kernel B2 on CUDA tensors, on ``plan`` (default: ``match_plan``;
+    the plan is the same for every storage type, since the halo is staged
+    in f32)."""
     f1 = f1.to(dtype).contiguous()
     f2 = f2.to(dtype).contiguous()
-    dts = (torch.float32, torch.bfloat16)
-    _kernels.check_cuda_tensor("f1", f1, dts, 4)
-    _kernels.check_cuda_tensor("f2", f2, dts, 4)
+    _kernels.check_cuda_tensor("f1", f1, tuple(_kernels.STORAGE), 4)
+    _kernels.check_cuda_tensor("f2", f2, tuple(_kernels.STORAGE), 4)
     if f2.device != f1.device:
         raise ValueError("f1 and f2 must be on the same device")
     B, H, W, K = f1.shape
@@ -671,7 +687,7 @@ def _match_flow_fast_cuda(f1, f2, maxh, maxw, dtype, plan=None):
     _kernels.library().call(
         "match_fast_launch", f1.device, f1.data_ptr(), f2.data_ptr(),
         idx.data_ptr(), ey.data_ptr(), ex.data_ptr(), pmax.data_ptr(),
-        B, H, W, K, maxh, maxw, int(dtype == torch.bfloat16),
+        B, H, W, K, maxh, maxw, _kernels.STORAGE[dtype],
         plan.rx, plan.ry, plan.tx, plan.ty, plan.bh, plan.bw)
     _kernels.count_launch(match_flow_fast, f1.device)
     debug.check_outputs("match_flow_fast (kernel B2)", (ey, ex, pmax))
@@ -685,8 +701,9 @@ def match_flow_fast(
 ) -> Tuple[torch.Tensor, ...]:
     """Norm-decomposed fused matcher: ``match_flow_fused``'s (idx, ey, ex,
     pmax) contract without marginal or gate. f1 ([B,] H, W, K), f2 ([B,]
-    H+maxh-1, W+maxw-1, K); ``dtype`` is the feature storage type (f32 or
-    bf16), norms and logits stay f32 and come from the stored values.
+    H+maxh-1, W+maxw-1, K); ``dtype`` is the feature storage type (f32,
+    bf16 or f16; on CUDA tensors anything else raises ValueError), norms
+    and logits stay f32 and come from the stored values.
     Differs from match_flow_fused only at near-exact cost ties, where the
     decomposition rounds apart and the dx-major visit order breaks ties
     differently. ``block_rows`` is accepted for signature parity with the

@@ -22,7 +22,8 @@ from . import _kernels
 def banded_bilinear_warp_plain(imgs: torch.Tensor, xs: torch.Tensor,
                                ys: torch.Tensor, band: int = 8) -> torch.Tensor:
     """Plain-torch twin of the kernel: four band-clipped, zero-bordered taps.
-    imgs (B, H, W, C) f32 or bf16, xs/ys (B, H, W) -> (B, H, W, C) f32."""
+    imgs (B, H, W, C) f32, bf16 or f16 (each tap upcast to f32), xs/ys
+    (B, H, W) -> (B, H, W, C) f32."""
     B, H, W, C = imgs.shape
     dev = imgs.device
     ii = torch.arange(H, dtype=torch.float32, device=dev)[None, :, None]
@@ -63,7 +64,7 @@ def _banded_bilinear_warp_cuda(imgs: torch.Tensor, xs: torch.Tensor,
     imgs = imgs.contiguous()
     xs = xs.float().contiguous()
     ys = ys.float().contiguous()
-    _kernels.check_cuda_tensor("imgs", imgs, (torch.float32, torch.bfloat16), 4)
+    _kernels.check_cuda_tensor("imgs", imgs, tuple(_kernels.STORAGE), 4)
     _kernels.check_cuda_tensor("xs", xs, (torch.float32,), 3)
     _kernels.check_cuda_tensor("ys", ys, (torch.float32,), 3)
     if xs.device != imgs.device or ys.device != imgs.device:
@@ -73,7 +74,7 @@ def _banded_bilinear_warp_cuda(imgs: torch.Tensor, xs: torch.Tensor,
     _kernels.library().call(
         "warp_banded_launch", imgs.device, imgs.data_ptr(), xs.data_ptr(),
         ys.data_ptr(), out.data_ptr(), B, H, W, C, int(band),
-        int(imgs.dtype == torch.bfloat16))
+        _kernels.STORAGE[imgs.dtype])
     _kernels.count_launch(banded_bilinear_warp, imgs.device)
     return out
 
@@ -85,7 +86,7 @@ def _banded_bilinear_warp_cuda(imgs: torch.Tensor, xs: torch.Tensor,
                          mutates_args=(), device_types="cpu")
 def banded_bilinear_warp_op(imgs: torch.Tensor, xs: torch.Tensor,
                             ys: torch.Tensor, band: int) -> torch.Tensor:
-    """B3 on imgs (B, H, W, C) f32 or bf16 and xs, ys (B, H, W):
+    """B3 on imgs (B, H, W, C) f32, bf16 or f16 and xs, ys (B, H, W):
     (B, H, W, C) f32."""
     return banded_bilinear_warp_plain(imgs, xs, ys, band)
 
@@ -102,7 +103,8 @@ def _(imgs, xs, ys, band):
 
 def banded_bilinear_warp(imgs: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
                          band: int = 8, block_rows: int = 16) -> torch.Tensor:
-    """imgs (B, H, W, C) channels-last f32 or bf16; xs, ys (B, H, W) sample
+    """imgs (B, H, W, C) channels-last f32, bf16 or f16 (on CUDA tensors
+    any other type raises ValueError); xs, ys (B, H, W) sample
     coordinates. Returns (B, H, W, C) f32. The work is the operator
     ``banded_bilinear_warp_op``: CUDA tensors go through the kernel
     (counted in ``banded_bilinear_warp.launches``), CPU tensors through

@@ -273,6 +273,27 @@ def test_key_changes_with_build_digest_and_card(monkeypatch):
     assert len(_kernels._digest()) == 16
 
 
+def test_f16_resolution_is_stored_under_its_own_key(monkeypatch,
+                                                   tuned_store):
+    """An f16 resolution has its own store key (beside f32's and bf16's)
+    and, on the CPU, the rule's plan, which is bf16's: B1 and B2 stage
+    their halo in f32 whatever the storage type."""
+    monkeypatch.setattr(torch.cuda, "get_device_name",
+                        lambda d=None: "NVIDIA H100 80GB HBM3")
+    shapes = ((2, 30, 40, 10), (2, 45, 55, 10))
+    for kernel in ("fused", "fast"):
+        keys = {autotune.plan_key(kernel, *shapes, 16, 16, dt, True, 0.11,
+                                  "cuda:0")
+                for dt in (torch.float32, torch.bfloat16, torch.float16)}
+        assert len(keys) == 3
+        assert any(":float16:" in k for k in keys)
+        plans = [autotune.best_plan(kernel, *shapes, 16, 16, dt, True,
+                                    device="cpu")
+                 for dt in (torch.bfloat16, torch.float16)]
+        assert plans[0] == plans[1] is not None
+    assert not tuned_store.exists()
+
+
 def test_concurrent_resolutions_leave_a_readable_store(tuned_store):
     """Eight threads resolve 40 keys at once: the store is whole JSON with
     every key, and a fresh process reads every winner back."""

@@ -149,6 +149,31 @@ def test_trunk_matches_jax_on_car_model():
         ref[:, 7:165 - 8, 7:305 - 8])
 
 
+@pytest.mark.parametrize("dt", ["bf16", "f16"])
+def test_reduced_precision_trunk_matches_jax_on_car_model(dt):
+    """The car_model trunk fed bf16 or f16 images computes in that type
+    (the quality table's trunk-in-bf16 rows): each layer's sums rounded to
+    it, then its bias added in it, as the reference's TrunkConv rounds.
+    The two packages sum each output in another order, so a value may sit
+    one step of the type apart: held at 2 steps of the output's scale, and
+    the mean within a tenth of that."""
+    geom, trunk = tio.load_filter(CAR_MODEL, device="cpu")
+    jg, _, jparams, _ = jio.load_model(CAR_MODEL)
+    jdt, tdt = {"bf16": (jnp.bfloat16, torch.bfloat16),
+                "f16": (jnp.float16, torch.float16)}[dt]
+    rng = np.random.RandomState(0)
+    img = rng.rand(1, 60, 90, 3).astype(np.float32)
+    with torch.no_grad():
+        ours = trunk(torch.from_numpy(img).to(tdt))
+    assert ours.dtype == tdt
+    ours = ours.float().numpy()
+    ref = np.asarray(FlowModel(jg).features(
+        jparams, jnp.asarray(img, jdt)).astype(jnp.float32))
+    step = np.abs(ref).max() * float(torch.finfo(tdt).eps)
+    d = np.abs(ours - ref)
+    assert d.max() <= 2 * step and d.mean() <= 0.2 * step, (d.max(), step)
+
+
 def test_sparse_conv_map_matches_jax():
     """A layer whose nominal cin (4) differs from the previous cout (8) is
     a sparse random-connection conv; the bridge keeps its sparse kernel."""

@@ -3,7 +3,8 @@
 Shapes here are chosen to reach the kernels' edges rather than the main
 paths' shapes (``chip_smoke.py`` covers those): ragged output tiles,
 channel counts between the compiled sizes, non-square and 16-row windows,
-bands of 0 and 1, taps on the image border, B3's rows cut inside a CTA's
+bands of 0 and 1, taps on the image border, f32, bf16 and f16 storage
+(and the refusal of any other type), B3's rows cut inside a CTA's
 segment at C = 1 to 17, 1x1 and odd SOR images, 0, 1 and 40 SOR
 iterations, leading batch dims, B2 and B5 at K = 1 to 100, 1x1 to 64x64,
 3x500 and 500x3 windows (walked in bands where the halo does not fit),
@@ -57,7 +58,8 @@ def _features(dev, H, W, K, maxh, maxw, seed):
 
 
 @pytest.mark.parametrize("mode", ["plain", "marg", "conf"])
-@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16,
+                                torch.float16])
 @pytest.mark.parametrize("K", [3, 10, 17])
 @pytest.mark.parametrize("maxh,maxw", [(4, 4), (5, 3), (9, 13), (16, 16)])
 def test_match_fused_kernel_matches_plain(dev, maxh, maxw, K, dt, mode):
@@ -97,7 +99,8 @@ GENERAL_FUSED = [(17, 4, 10), (24, 24, 10), (32, 32, 3), (4, 4, 33),
 
 
 @pytest.mark.parametrize("mode", ["plain", "marg", "conf"])
-@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16,
+                                torch.float16])
 @pytest.mark.parametrize("maxh,maxw,K", GENERAL_FUSED)
 def test_match_fused_kernel_general_shapes_match_plain(dev, maxh, maxw, K, dt,
                                                        mode):
@@ -127,7 +130,7 @@ def test_match_fused_general_kernel_any_passes_and_bands_match_plain(
     # whole-window, small and one-cell passes and bands
     plan = matching.FusedPlan(True, min(rows, maxh), min(cols, maxw), 0)
     f1, f2 = _features(dev, 9, 37, K, maxh, maxw, seed=rows * 10 + cols + K)
-    for dt in (torch.float32, torch.bfloat16):
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
         got = matching._match_flow_fused_cuda(f1, f2, maxh, maxw, True, dt,
                                               False, 0.11, plan)
         ref = matching.match_flow_fused_plain(f1, f2, maxh, maxw, True, dt)
@@ -149,6 +152,58 @@ def test_match_fused_kernel_ties_across_bands_take_the_first_cell(dev):
     assert got[0].item() == ref[0].item() == 8
 
 
+def test_kernels_refuse_other_storage_types(dev):
+    """B1, B2 and B3 take f32, bf16 and f16 storage on the card; any other
+    type raises before a launch (and is never run through the twin)."""
+    f1, f2 = _features(dev, 8, 8, 10, 4, 4, seed=0)
+    n = (matching.match_flow_fused.launches, matching.match_flow_fast.launches,
+         warp.banded_bilinear_warp.launches)
+    for dt in (torch.float64, torch.int32):
+        with pytest.raises(ValueError):
+            matching.match_flow_fused(f1, f2, 4, 4, dtype=dt)
+        with pytest.raises(ValueError):
+            matching.match_flow_fast(f1, f2, 4, 4, dtype=dt)
+        xs = torch.zeros(2, 8, 8, device=dev)
+        with pytest.raises(ValueError):
+            warp.banded_bilinear_warp(f1[:, :8, :8].to(dt).contiguous(),
+                                      xs, xs, 2)
+    assert (matching.match_flow_fused.launches,
+            matching.match_flow_fast.launches,
+            warp.banded_bilinear_warp.launches) == n
+
+
+def test_f16_estimator_step_launches_its_kernels(dev):
+    """A BatchedDepthEstimator step with every storage knob in f16, in
+    'warp_banded' mode: B3 and B1 launch on f16 tensors (once each), and
+    the outputs are finite, as in f32 (chip_smoke.py phase 18 measures the
+    f16 step against the f32 one on frames of determined motion)."""
+    import os
+    from depth_estimation_tpu_torch import api_batched
+    from depth_estimation_tpu_torch.geometry3d.calibration import ARDRONE
+    from depth_estimation_tpu_torch.models import io as mio
+    geom, _, params, _ = mio.load_model(os.path.join(
+        os.path.dirname(__file__), "..", "examples", "car_model"))
+    g = torch.Generator(device=dev).manual_seed(3)
+    base = torch.rand(2, 120, 160, 3, generator=g, device=dev)
+    f1 = torch.nn.functional.interpolate(
+        base.permute(0, 3, 1, 2), size=(480, 640), mode="bilinear",
+        align_corners=False).permute(0, 2, 3, 1)
+    f2 = torch.roll(f1, 2, dims=2)
+    u8 = [(f * 255).to(torch.uint8) for f in (f1, f2)]
+    for dt in (torch.float32, torch.float16):
+        est = api_batched.BatchedDepthEstimator(
+            geom, params, ARDRONE, compensation="warp_banded",
+            match_dtype=dt, warp_dtype=dt, state_dtype=dt, device=dev)
+        n = (matching.match_flow_fused.launches,
+             warp.banded_bilinear_warp.launches)
+        est.reset(u8[0])
+        xflow, mask, depth, good = est.next_frames(u8[1])
+        assert (matching.match_flow_fused.launches,
+                warp.banded_bilinear_warp.launches) == (n[0] + 1, n[1] + 1)
+        assert torch.isfinite(xflow).all() and torch.isfinite(mask).all()
+        assert est.last_feats.dtype == dt
+
+
 def test_match_fused_kernel_rejects_mixed_devices(dev):
     for maxh, K in ((4, 10), (17, 33)):
         f1, f2 = _features(dev, 8, 8, K, maxh, 4, seed=0)
@@ -156,7 +211,8 @@ def test_match_fused_kernel_rejects_mixed_devices(dev):
             matching.match_flow_fused(f1, f2.cpu(), maxh, 4)
 
 
-@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16,
+                                torch.float16])
 @pytest.mark.parametrize("band,C", [(0, 1), (1, 3), (3, 10), (8, 10)])
 def test_warp_banded_kernel_matches_plain(dev, band, C, dt):
     rng = np.random.RandomState(band * 10 + C)
@@ -185,7 +241,8 @@ def test_warp_banded_kernel_matches_plain(dev, band, C, dt):
     assert (got - ref).abs().max().item() <= 1e-6
 
 
-@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16,
+                                torch.float16])
 @pytest.mark.parametrize("C", [1, 3, 10, 17, 500])
 @pytest.mark.parametrize("W", [1, 127, 129, 305])
 def test_warp_banded_kernel_ragged_rows_match_plain(dev, W, C, dt):
@@ -323,7 +380,8 @@ def test_sor_barrier_probe_runs_each_mode_uncounted(dev, H, W):
     assert sor_kernel.sor_redblack.launches == n0
 
 
-@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16,
+                                torch.float16])
 @pytest.mark.parametrize("H,W", [(1, 1), (3, 5), (7, 31), (9, 33), (2, 63),
                                  (11, 65)])
 def test_match_fused_kernel_ragged_widths_equal_plain(dev, H, W, dt):
@@ -366,7 +424,8 @@ def _check_decomposed(got, ref, f1, f2, maxh, maxw, dt=None):
         assert (a - b).abs().max().item() <= 1e-5
 
 
-@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16,
+                                torch.float16])
 @pytest.mark.parametrize("K", [1, 3, 10, 17, 32])
 @pytest.mark.parametrize("maxh,maxw", [(1, 1), (3, 5), (4, 4), (6, 4), (5, 3),
                                        (9, 13), (16, 16), (20, 7)])
@@ -387,7 +446,8 @@ RAGGED = [(1, 1), (3, 5), (7, 31), (9, 33), (2, 63), (11, 65)]
 RAGGED_WINDOWS = [(1, 1), (3, 5), (20, 7), (16, 16)]
 
 
-@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16,
+                                torch.float16])
 @pytest.mark.parametrize("maxh,maxw", RAGGED_WINDOWS)
 @pytest.mark.parametrize("H,W", RAGGED)
 def test_match_fast_kernel_ragged_equal_plain(dev, H, W, maxh, maxw, dt):
@@ -400,7 +460,8 @@ def test_match_fast_kernel_ragged_equal_plain(dev, H, W, maxh, maxw, dt):
     _check_decomposed(got, ref, f1, f2, maxh, maxw, dt)
 
 
-@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16,
+                                torch.float16])
 @pytest.mark.parametrize("B", [1, 3, 130])
 def test_match_fast_kernel_batches_equal_plain(dev, B, dt):
     g = torch.Generator(device=dev).manual_seed(B)
@@ -420,7 +481,8 @@ COMPILED = [(kc or 100, b, (16, 16) if kc else (7, 5))
             for kc, bs in matching.BLOCKINGS.items() for b in bs]
 
 
-@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16,
+                                torch.float16])
 @pytest.mark.parametrize("K,blocking,window", COMPILED)
 def test_match_fast_every_compiled_blocking_equals_plain(dev, K, blocking,
                                                          window, dt):
@@ -441,7 +503,8 @@ GENERAL_DECOMPOSED = [(64, 64, 32), (64, 64, 1), (48, 48, 17), (3, 500, 10),
                       (500, 3, 32), (4, 4, 33), (16, 16, 64), (7, 5, 100)]
 
 
-@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16,
+                                torch.float16])
 @pytest.mark.parametrize("maxh,maxw,K", GENERAL_DECOMPOSED)
 def test_match_fast_kernel_general_shapes_match_plain(dev, maxh, maxw, K, dt):
     f1, f2 = _features(dev, 7, 37, K, maxh, maxw, seed=maxh + maxw + K)
@@ -736,7 +799,8 @@ def test_vpu_kernels_refuse_what_they_do_not_take(dev):
 CANDIDATE_WINDOWS = [(16, 16, 10), (9, 13, 3), (8, 8, 16), (24, 24, 10)]
 
 
-@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16,
+                                torch.float16])
 @pytest.mark.parametrize("maxh,maxw,K", CANDIDATE_WINDOWS)
 def test_every_match_fused_candidate_equals_the_default_plan(dev, maxh, maxw,
                                                              K, dt):
@@ -758,7 +822,8 @@ def test_every_match_fused_candidate_equals_the_default_plan(dev, maxh, maxw,
             assert (a - b).abs().max().item() <= 1e-5
 
 
-@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16,
+                                torch.float16])
 @pytest.mark.parametrize("maxh,maxw,K", CANDIDATE_WINDOWS)
 def test_every_match_fast_candidate_equals_the_default_plan(dev, maxh, maxw,
                                                             K, dt):

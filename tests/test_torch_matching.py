@@ -15,7 +15,8 @@ from depth_estimation_tpu_torch.ops import matching as tmatching
 B, H, W, K = 2, 10, 18, 8
 WINDOWS = [(4, 4), (5, 3), (6, 6)]
 DTYPES = {"f32": (jnp.float32, torch.float32),
-          "bf16": (jnp.bfloat16, torch.bfloat16)}
+          "bf16": (jnp.bfloat16, torch.bfloat16),
+          "f16": (jnp.float16, torch.float16)}
 MODES = ("plain", "marg", "conf")
 THR = 0.11
 
@@ -36,9 +37,17 @@ def jax_fused():
         key = (maxh, maxw, dt, mode)
         if key not in cache:
             f1, f2 = _inputs(maxh, maxw)
+            jdt = DTYPES[dt][0]
+            if dt == "f16":
+                # storage-only f16: the JAX kernel at f32 on f16-stored
+                # values (its own f16 form rounds each channel's
+                # difference to f16 on the CPU, see test_f16_twins_*)
+                f1, f2 = (a.astype(np.float16).astype(np.float32)
+                          for a in (f1, f2))
+                jdt = jnp.float32
             outs = jmatching.match_flow_fused(
                 jnp.asarray(f1), jnp.asarray(f2), maxh, maxw, 8, True,
-                mode == "marg", DTYPES[dt][0], mode == "conf", THR)
+                mode == "marg", jdt, mode == "conf", THR)
             cache[key] = [np.asarray(o) for o in outs]
         return cache[key]
     return get
@@ -152,7 +161,7 @@ FAST_WINDOW = (6, 4)            # non-square: the dx-major visit order shows
 # once and do the arithmetic in f32; only the summation order of the norms
 # and cross terms differs, so both storage types are held at 1e-5 (bf16
 # storage changes the inputs, not the f32 arithmetic on them).
-FAST_TOL = {"f32": 1e-5, "bf16": 1e-5}
+FAST_TOL = {"f32": 1e-5, "bf16": 1e-5, "f16": 1e-5}
 
 
 def _fast_inputs(scale=0.5, seed=8):
@@ -185,6 +194,47 @@ def test_fast_plain_matches_jax(dt):
                                     DTYPES[dt][1])
     for a, b in zip(one, ours):
         np.testing.assert_array_equal(a.numpy(), b[0])
+
+
+def test_f16_twins_match_jax_interpret():
+    """f16 storage at the JAX package's own f16 test size (24x32x6, 8x8
+    window): B1's and B2's twins against the Pallas kernels in interpret
+    mode. B2's reference upcasts before every product, as the twin does:
+    equal to f32 rounding. B1's reference writes each channel difference
+    in the storage type, (f1 - f2).astype(f32), and the CPU backend
+    rounds that difference to f16 (it keeps bf16 differences in f32), so
+    it carries one rounding of |f1 - f2| * 2^-11 that the storage-only
+    twin (f32 subtraction of the stored values, as the reference's
+    match_ssd) does not: the twin is held to the JAX kernel at f32 on the
+    f16-stored values to f32 rounding, and to its f16 form within 1e-3."""
+    rng = np.random.RandomState(7)
+    maxh = maxw = 8
+    h, w, k = 24, 32, 6
+    f1 = rng.rand(h, w, k).astype(np.float32)
+    f2 = rng.rand(h + maxh - 1, w + maxw - 1, k).astype(np.float32)
+    t1, t2 = torch.from_numpy(f1), torch.from_numpy(f2)
+    gap = _second_best_gap(tmatching.match_ssd(t1, t2, maxh, maxw,
+                                               torch.float16).numpy())
+    fused = [o.numpy() for o in tmatching.match_flow_fused(
+        t1, t2, maxh, maxw, 8, False, torch.float16)]
+    fast = [o.numpy() for o in tmatching.match_flow_fast(
+        t1, t2, maxh, maxw, 8, torch.float16)]
+    q1, q2 = (jnp.asarray(a.astype(np.float16).astype(np.float32))
+              for a in (f1, f2))
+    cases = (
+        (fused, jmatching.match_flow_fused(q1, q2, maxh, maxw, 8, True), 1e-5),
+        (fused, jmatching.match_flow_fused(
+            jnp.asarray(f1), jnp.asarray(f2), maxh, maxw, 16, True, False,
+            jnp.float16), 1e-3),
+        (fast, jmatching.match_flow_fast(
+            jnp.asarray(f1), jnp.asarray(f2), maxh, maxw, 16, True,
+            jnp.float16), 1e-5))
+    for ours, ref, tol in cases:
+        ref = [np.asarray(o) for o in ref]
+        diff = ours[0] != ref[0]
+        assert (gap[diff] < tol).all(), diff.sum()
+        for a, b in zip(ours[1:4], ref[1:4]):          # ey, ex, pmax
+            np.testing.assert_allclose(a, b, rtol=0, atol=tol)
 
 
 def test_fast_plain_dx_major_tie_break():

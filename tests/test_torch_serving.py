@@ -445,17 +445,19 @@ def test_artifact_loads_without_the_models_or_jax(flow_dir, tmp_path):
     assert res.stdout.strip() == "ok"
 
 
-@pytest.mark.parametrize("mode", ["plain", "conf", "marg", "bf16"])
+@pytest.mark.parametrize("mode", ["plain", "conf", "marg", "bf16", "f16"])
 def test_match_flow_fused_operator_passes_opcheck(mode):
     rng = np.random.RandomState(12)
     f1 = torch.from_numpy(rng.rand(2, 5, 6, 4).astype(np.float32))
     f2 = torch.from_numpy(rng.rand(2, 8, 9, 4).astype(np.float32))
+    storage = {"bf16": 1, "f16": 2}.get(mode, 0)
     torch.library.opcheck(matching.match_flow_fused_op,
-                          (f1, f2, 4, 4, mode == "marg", mode == "bf16",
+                          (f1, f2, 4, 4, mode == "marg", storage,
                            mode == "conf", 0.11))
 
 
-@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16,
+                                torch.float16])
 def test_banded_bilinear_warp_operator_passes_opcheck(dt):
     rng = np.random.RandomState(13)
     imgs = torch.from_numpy(rng.rand(2, 7, 9, 3).astype(np.float32)).to(dt)
@@ -480,4 +482,4 @@ def test_wrappers_keep_their_outputs():
     conf = matching.match_flow_fused(f1, f2, 4, 4, want_conf=True)
     assert tuple(conf[4].shape) == (5, 6)
     with pytest.raises(ValueError):
-        matching.match_flow_fused(f1, f2, 4, 4, dtype=torch.float16)
+        matching.match_flow_fused(f1, f2, 4, 4, dtype=torch.float64)

@@ -74,16 +74,34 @@ def test_banded_plain_bf16_storage(warp_case):
     np.testing.assert_allclose(ours.numpy(), ref, rtol=0, atol=1e-5)
 
 
+def test_banded_plain_f16_storage_matches_pallas_interpret():
+    """f16 image storage: the twin against the Pallas kernel run in
+    interpret mode on the f16 image itself (its scratch in the image's
+    type, each tap upcast before the multiply), to f32 rounding."""
+    rng = np.random.RandomState(5)
+    Bn, Hn, Wn, C = 2, 24, 32, 6
+    imgs = rng.rand(Bn, Hn, Wn, C).astype(np.float16)
+    ys = np.arange(Hn, dtype=np.float32)[None, :, None] + _field(rng, (Bn, Hn, Wn))
+    xs = np.arange(Wn, dtype=np.float32)[None, None, :] + _field(rng, (Bn, Hn, Wn))
+    ref = np.asarray(jwarp.banded_bilinear_warp(
+        jnp.asarray(imgs), jnp.asarray(xs), jnp.asarray(ys), D, 16, True))
+    n0 = twarp.banded_bilinear_warp.launches
+    ours = twarp.banded_bilinear_warp(_t(imgs), _t(xs), _t(ys), D)
+    assert twarp.banded_bilinear_warp.launches == n0      # CPU: plain twin
+    assert ours.dtype == torch.float32
+    np.testing.assert_allclose(ours.numpy(), ref, rtol=0, atol=1e-5)
+
+
 K_SMALL = np.array([[30.0, 0, 16], [0, 30.0, 12], [0, 0, 1]], np.float32)
 ROTS = np.stack([_rot(0.02, 0.01), _rot(-0.06, 0.03), _rot(0.15, -0.05)])
 
 
-@pytest.mark.parametrize("dtype", [None, "bf16"])
+@pytest.mark.parametrize("dtype", [None, "bf16", "f16"])
 def test_remove_ego_motion_banded_matches_xla_form(dtype):
     rng = np.random.RandomState(1)
     imgs = rng.rand(3, 24, 32, 4).astype(np.float32)
-    jdt = None if dtype is None else jnp.bfloat16
-    tdt = None if dtype is None else torch.bfloat16
+    jdt = {None: None, "bf16": jnp.bfloat16, "f16": jnp.float16}[dtype]
+    tdt = {None: None, "bf16": torch.bfloat16, "f16": torch.float16}[dtype]
     ref = np.asarray(jund._remove_ego_motion_banded_xla(
         jnp.asarray(imgs), K_SMALL, jnp.asarray(ROTS), D, jdt))
     ours = tund.remove_ego_motion_banded(_t(imgs), K_SMALL, _t(ROTS), D, tdt)

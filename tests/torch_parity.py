@@ -125,6 +125,7 @@ def run_batched_both(case, share_state=False, **knobs):
     for k in ("match_dtype", "warp_dtype", "state_dtype"):
         if k in knobs:
             jknobs[k] = {torch.bfloat16: jnp.bfloat16,
+                         torch.float16: jnp.float16,
                          torch.float32: jnp.float32}[knobs[k]]
     noise = ransac_noise(knobs.get("ransac_samples", 64), case["n_points"])
     ours = tapi.BatchedDepthEstimator(case["tg"], case["params"], case["tc"],
