@@ -66,8 +66,14 @@ a recorded decision not to port it, ROADMAP A.16):
                                speed-of-light report, with the bound
                                formulas of PERF.md's kernel table
   utils/                       device selection, timers, profiler spans
-                               and traces, flow colourings, PNG / video
-                               files, the live viewer
+                               and traces (the program's own spans,
+                               declared in utils/timer.SPANS: online.*
+                               in api_batched, ego.* in egomotion,
+                               decode.* in the multiscale decode; they
+                               record only while a torch.profiler runs,
+                               e.g. under utils/timer.capture_trace),
+                               flow colourings, PNG / video files, the
+                               live viewer
 """
 
 __version__ = "0.1.0"

@@ -40,6 +40,7 @@ from .models.multiscale import avg_downsample
 from .ops import extract, matching
 from .utils.device import resolve as resolve_device
 from .utils.precision import full_f32
+from .utils.timer import profiled_span
 
 
 def depth_from_xflow(xflow: torch.Tensor, w_img: int) -> torch.Tensor:
@@ -178,14 +179,16 @@ class BatchedDepthEstimator:
     def _prep(self, frames: torch.Tensor):
         """Normalize, resize, undistort and filter a batch of frames."""
         g = self.geometry
-        if frames.dtype == torch.uint8:
-            frames = frames.float() / 255.0
-        frames = images.scale_batched_device(frames, g.hImg, g.wImg)
-        u = undist.undistort_image(frames, self.K_scaled, self.cal.distortion)
-        feats = self.trunk(u)
-        if self.state_dtype is not None:
-            u = u.to(self.state_dtype)
-            feats = feats.to(self.state_dtype)
+        with profiled_span("online.prep"):
+            if frames.dtype == torch.uint8:
+                frames = frames.float() / 255.0
+            frames = images.scale_batched_device(frames, g.hImg, g.wImg)
+            u = undist.undistort_image(frames, self.K_scaled,
+                                       self.cal.distortion)
+            feats = self.trunk(u)
+            if self.state_dtype is not None:
+                u = u.to(self.state_dtype)
+                feats = feats.to(self.state_dtype)
         return u, feats
 
     @torch.no_grad()
@@ -201,70 +204,76 @@ class BatchedDepthEstimator:
             K_ego[:2] /= r
         else:
             e1, e2, K_ego = last_u, u, Ks
-        em = ego.get_ego_motion_batched(
-            e1, e2, K_ego, max_points=cal.sfm.max_points,
-            quality=cal.sfm.points_quality, noise=self.ransac_noise,
-            lk_iters=self.lk_iters, n_samples=self.ransac_samples,
-            selector=self.corner_selector, lk_search=self.lk_search)
-        ratio = em.n_inliers.float() / torch.clamp(em.n_found.float(), min=1.0)
-        good = ratio >= cal.bad_image_threshold
-        eye = torch.eye(3, device=self.device).expand(B, 3, 3)
-        R = torch.where(good[:, None, None], em.R, eye)
+        with profiled_span("online.ego"):
+            em = ego.get_ego_motion_batched(
+                e1, e2, K_ego, max_points=cal.sfm.max_points,
+                quality=cal.sfm.points_quality, noise=self.ransac_noise,
+                lk_iters=self.lk_iters, n_samples=self.ransac_samples,
+                selector=self.corner_selector, lk_search=self.lk_search)
+            ratio = em.n_inliers.float() / torch.clamp(em.n_found.float(),
+                                                       min=1.0)
+            good = ratio >= cal.bad_image_threshold
+            eye = torch.eye(3, device=self.device).expand(B, 3, 3)
+            R = torch.where(good[:, None, None], em.R, eye)
 
-        Hf, Wf = last_feats.shape[1], last_feats.shape[2]
-        band = self.warp_band
-        if self.compensation == "warp":
-            warped = undist.remove_ego_motion_exact(
-                last_feats, Ks, R, band=band, dtype=self.warp_dtype)
-            wmask = undist.ego_motion_valid_mask(Ks, R, Hf, Wf)
-            f1 = flow_model.crop_features_center(g, warped)
-        elif self.compensation == "warp_banded":
-            warped = undist.remove_ego_motion_banded(
-                last_feats, Ks, R, band=band, dtype=self.warp_dtype)
-            wmask = undist.ego_motion_valid_mask(Ks, R, Hf, Wf, band=band)
-            f1 = flow_model.crop_features_center(g, warped)
-        else:
-            dxs, dys = undist.homography_grid(Ks, R, Hf, Wf)
-            jgrid = torch.arange(Wf, dtype=torch.float32, device=self.device)[None, None, :]
-            igrid = torch.arange(Hf, dtype=torch.float32, device=self.device)[None, :, None]
-            rot_x = dxs - jgrid
-            rot_y = dys - igrid
-            # valid where the displaced correspondence stays inside the
-            # centered search window (margin 1 for the soft tail)
-            margin_y = min(g.halfh1, g.halfh2) - 1
-            margin_x = min(g.halfw1, g.halfw2) - 1
-            wmask = ((torch.abs(rot_y) <= margin_y)
-                     & (torch.abs(rot_x) <= margin_x)).float()
-            f1 = flow_model.crop_features_center(g, last_feats)
-        plan = self._plans.get(self._plan_key(f1, feats))
-        if self.head == "mean":
-            idx, ey, ex, pmax, confs = matching.match_flow_fused(
-                f1, feats, g.maxh, g.maxw, 8, False, self.match_dtype, True,
-                0.11, plan)
-            y, x = ey, ex
-        else:
-            idx, ey, ex, pmax = matching.match_flow_fused(
-                f1, feats, g.maxh, g.maxw, 8, False, self.match_dtype,
-                plan=plan)
-            wy, wx = codecs.decode(g, idx)
-            y, x = wy.float(), wx.float()
-            confs = torch.ones_like(pmax)
+        with profiled_span("online.flow"):
+            Hf, Wf = last_feats.shape[1], last_feats.shape[2]
+            band = self.warp_band
+            if self.compensation == "warp":
+                warped = undist.remove_ego_motion_exact(
+                    last_feats, Ks, R, band=band, dtype=self.warp_dtype)
+                wmask = undist.ego_motion_valid_mask(Ks, R, Hf, Wf)
+                f1 = flow_model.crop_features_center(g, warped)
+            elif self.compensation == "warp_banded":
+                warped = undist.remove_ego_motion_banded(
+                    last_feats, Ks, R, band=band, dtype=self.warp_dtype)
+                wmask = undist.ego_motion_valid_mask(Ks, R, Hf, Wf, band=band)
+                f1 = flow_model.crop_features_center(g, warped)
+            else:
+                dxs, dys = undist.homography_grid(Ks, R, Hf, Wf)
+                jgrid = torch.arange(Wf, dtype=torch.float32,
+                                     device=self.device)[None, None, :]
+                igrid = torch.arange(Hf, dtype=torch.float32,
+                                     device=self.device)[None, :, None]
+                rot_x = dxs - jgrid
+                rot_y = dys - igrid
+                # valid where the displaced correspondence stays inside the
+                # centered search window (margin 1 for the soft tail)
+                margin_y = min(g.halfh1, g.halfh2) - 1
+                margin_x = min(g.halfw1, g.halfw2) - 1
+                wmask = ((torch.abs(rot_y) <= margin_y)
+                         & (torch.abs(rot_x) <= margin_x)).float()
+                f1 = flow_model.crop_features_center(g, last_feats)
+            plan = self._plans.get(self._plan_key(f1, feats))
+            if self.head == "mean":
+                idx, ey, ex, pmax, confs = matching.match_flow_fused(
+                    f1, feats, g.maxh, g.maxw, 8, False, self.match_dtype,
+                    True, 0.11, plan)
+                y, x = ey, ex
+            else:
+                idx, ey, ex, pmax = matching.match_flow_fused(
+                    f1, feats, g.maxh, g.maxw, 8, False, self.match_dtype,
+                    plan=plan)
+                wy, wx = codecs.decode(g, idx)
+                y, x = wy.float(), wx.float()
+                confs = torch.ones_like(pmax)
 
-        H, W = y.shape[1:]
-        if self.compensation == "decode":
-            # pure rotation makes the raw match read -delta, so the physical
-            # flow is d + delta
-            x = x + rot_x[:, g.halfh1:g.halfh1 + H, g.halfw1:g.halfw1 + W]
-        xflow = embed_center(x, g.hImg, g.wImg)
-        fullc = embed_center(confs, g.hImg, g.wImg)
-        m = wmask[:, g.halfh1:g.halfh1 + H, g.halfw1:g.halfw1 + W]
-        m = extract.enlarge_mask_batched(m > 0.5, g.hKernel, g.wKernel)
-        mask = embed_center(m.float(), g.hImg, g.wImg) * fullc
+            H, W = y.shape[1:]
+            if self.compensation == "decode":
+                # pure rotation makes the raw match read -delta, so the
+                # physical flow is d + delta
+                x = x + rot_x[:, g.halfh1:g.halfh1 + H, g.halfw1:g.halfw1 + W]
+            xflow = embed_center(x, g.hImg, g.wImg)
+            fullc = embed_center(confs, g.hImg, g.wImg)
+            m = wmask[:, g.halfh1:g.halfh1 + H, g.halfw1:g.halfw1 + W]
+            m = extract.enlarge_mask_batched(m > 0.5, g.hKernel, g.wKernel)
+            mask = embed_center(m.float(), g.hImg, g.wImg) * fullc
 
-        keep = good[:, None, None]
-        xflow = torch.where(keep, xflow, torch.zeros_like(xflow))
-        mask = torch.where(keep, mask, torch.zeros_like(mask))
-        return u, feats, xflow, mask, depth_from_xflow(xflow, g.wImg), good
+            keep = good[:, None, None]
+            xflow = torch.where(keep, xflow, torch.zeros_like(xflow))
+            mask = torch.where(keep, mask, torch.zeros_like(mask))
+            depth = depth_from_xflow(xflow, g.wImg)
+        return u, feats, xflow, mask, depth, good
 
     def _plan_key(self, f1, feats) -> tuple:
         return (str(f1.device), tuple(f1.shape), tuple(feats.shape))

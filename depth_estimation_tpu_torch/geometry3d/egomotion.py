@@ -42,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from ..models.multiscale import avg_downsample
+from ..utils.timer import profiled_span
 
 
 class EgoMotion(NamedTuple):
@@ -499,9 +500,12 @@ def ransac_hypotheses(pts1: torch.Tensor, pts2: torch.Tensor,
     idx = scores.argmax(-1)                                 # (B, S, 8)
     flat = idx.reshape(B, S * 8, 1).expand(B, S * 8, 2)
     take = lambda p: torch.gather(p, 1, flat).reshape(B, S, 8, 2)
-    Es = _eight_point(take(p1n), take(p2n))                 # (B, S, 3, 3)
-    d = _sampson(Es, p1n, p2n)                              # (B, S, N)
-    inls = ((d < max_dist) & valid[:, None]).sum(-1)        # (B, S)
+    s1, s2 = take(p1n), take(p2n)
+    with profiled_span("ego.qr"):
+        Es = _eight_point(s1, s2)                           # (B, S, 3, 3)
+    with profiled_span("ego.score"):
+        d = _sampson(Es, p1n, p2n)                          # (B, S, N)
+        inls = ((d < max_dist) & valid[:, None]).sum(-1)    # (B, S)
     return idx, Es, inls
 
 
@@ -515,13 +519,16 @@ def get_ego_motion_from_matches_batched(
     found counts (B,)."""
     p1n, p2n = _normalize(pts1, K), _normalize(pts2, K)
     _, Es, inls = ransac_hypotheses(pts1, pts2, valid, K, noise, max_dist)
-    best = inls.argmax(-1)
-    bi = torch.arange(pts1.shape[0], device=pts1.device)
-    E = Es[bi, best]
-    Rs, ts = _decompose_E(E)
-    counts = _cheirality_count(Rs, ts, p1n, p2n)            # (B, 4)
-    pick = counts.argmax(-1)
-    return EgoMotion(Rs[bi, pick], ts[bi, pick], inls[bi, best], valid.sum(-1))
+    with profiled_span("ego.score"):
+        best = inls.argmax(-1)
+        bi = torch.arange(pts1.shape[0], device=pts1.device)
+        E = Es[bi, best]
+    with profiled_span("ego.pose"):
+        Rs, ts = _decompose_E(E)
+        counts = _cheirality_count(Rs, ts, p1n, p2n)        # (B, 4)
+        pick = counts.argmax(-1)
+        return EgoMotion(Rs[bi, pick], ts[bi, pick], inls[bi, best],
+                         valid.sum(-1))
 
 
 def get_ego_motion_from_matches(pts1, pts2, valid, K, noise,
@@ -544,8 +551,9 @@ def get_ego_motion_batched(imgs1, imgs2, K, max_points: int = 400,
     n_corners is max_points, or the cell count of the 'grid' selector.
     ``tracker``: 'windowed' (the online program's bounded-motion tracker)
     or 'full' (``track_lk_batched``, the offline loaders')."""
-    pts, pvalid = good_features_to_track_batched(imgs1, max_points, quality,
-                                                 selector=selector)
+    with profiled_span("ego.corners"):
+        pts, pvalid = good_features_to_track_batched(
+            imgs1, max_points, quality, selector=selector)
     n = pts.shape[1]
     if noise is None:
         noise = gumbel_noise(n_samples, n, imgs1.device)
@@ -553,14 +561,16 @@ def get_ego_motion_batched(imgs1, imgs2, K, max_points: int = 400,
         raise ValueError(f"noise shape {tuple(noise.shape)} != "
                          f"{(n_samples, 8, n)}")
     noise = noise.to(device=imgs1.device, dtype=torch.float32)
-    if tracker == "windowed":
-        pts2, status = track_lk_windowed_batched(imgs1, imgs2, pts,
-                                                 n_iters=lk_iters,
-                                                 search=lk_search)
-    elif tracker == "full":
-        pts2, status = track_lk_batched(imgs1, imgs2, pts, n_iters=lk_iters)
-    else:
-        raise ValueError(f"unknown tracker {tracker!r}")
+    with profiled_span("ego.lk"):
+        if tracker == "windowed":
+            pts2, status = track_lk_windowed_batched(imgs1, imgs2, pts,
+                                                     n_iters=lk_iters,
+                                                     search=lk_search)
+        elif tracker == "full":
+            pts2, status = track_lk_batched(imgs1, imgs2, pts,
+                                            n_iters=lk_iters)
+        else:
+            raise ValueError(f"unknown tracker {tracker!r}")
     return get_ego_motion_from_matches_batched(pts, pts2, pvalid & status, K,
                                                noise)
 

@@ -37,6 +37,7 @@ from ..geometry import Geometry
 from ..ops import matching
 from ..utils.device import resolve, true_div
 from ..utils.precision import full_f32
+from ..utils.timer import profiled_span
 from .filters import ConvFilter, init_params
 from .flow import crop_features_center
 
@@ -303,12 +304,20 @@ class MultiscaleFlowModel(nn.Module):
         if g.cascad_trainable_weights:
             raise ValueError("the staged decode implements the shipped "
                              "linear cascade only")
+        with profiled_span("decode.cost"):
+            dists = [torch.softmax(-matching.match_ssd(
+                f1, f2, g.maxh, g.maxw, dtype=self.decode_dtype), dim=-1)
+                for f1, f2 in feats]
+        with profiled_span("decode.select"):
+            return self._select_from_costs(dists)
+
+    def _select_from_costs(self, dists) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The staged decode's cascade, band WTA, merge over scales and
+        middle tie-break, from each scale's softmax over its window."""
+        g = self.geometry
         n = len(g.ratios)
         D = g.maxh * g.maxw
         mid_concat = codecs.middle_index(g)
-        dists = [torch.softmax(-matching.match_ssd(
-            f1, f2, g.maxh, g.maxw, dtype=self.decode_dtype), dim=-1)
-            for f1, f2 in feats]
 
         # static per-scale band metadata from the concatenated codec layout
         band = _band_indices(g)

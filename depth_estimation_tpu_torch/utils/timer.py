@@ -3,7 +3,26 @@
 toc or a span waits for the CUDA work queued before it ends, so the span
 covers the device time and not only the enqueue. ``profiled_span`` and
 ``capture_trace`` are ``torch.profiler``'s: a named range in a Chrome
-trace of CPU and CUDA activity."""
+trace of CPU and CUDA activity.
+
+The program's own spans are declared once, in ``SPANS``: the online
+step's three stages (``online.*``, ``api_batched``), ego-motion's five
+(``ego.*``, ``geometry3d/egomotion``) and the multiscale decode's two
+(``decode.*``, ``models/multiscale``). Each records only while a
+``torch.profiler`` runs, and then as a ``record_function`` range stamped
+on the profiler's clock, the clock of its CUDA kernel records; otherwise,
+and while ``torch.compile`` or ``torch.export`` traces, a span is one
+check and no range. An operator captures them by running the program
+inside ``capture_trace(log_dir)``::
+
+    with capture_trace("traces/step"):
+        est.next_frames(frames)
+
+and finds the ranges, and the kernels launched inside each, in
+``traces/step/trace.json``. ``SPANS`` also says what reads each span: a
+per-layer metric of the benchmark (``h100bench/metrics``), or its
+breakdown of the card's idle time by the span the host was in.
+"""
 
 from __future__ import annotations
 
@@ -11,7 +30,7 @@ import contextlib
 import os
 import time
 from collections import defaultdict
-from typing import Dict
+from typing import Dict, NamedTuple
 
 import torch
 
@@ -64,12 +83,58 @@ class Timers:
                         sorted(self.means().items()))
 
 
-@contextlib.contextmanager
+class Span(NamedTuple):
+    """A program span: its name, the layer and the lines it holds, and
+    what reads it (a per-layer metric of ``h100bench``, or the breakdown
+    of idle time by the span the host was in)."""
+    name: str
+    layer: str
+    reader: str
+
+
+BREAKDOWN = "the breakdown"
+
+SPANS = (
+    Span("online.prep", "API: BatchedDepthEstimator._prep: normalise, "
+         "resize, undistort, trunk", BREAKDOWN),
+    Span("online.ego", "API: BatchedDepthEstimator._step: ego-motion and "
+         "the bad-frame gate", BREAKDOWN),
+    Span("online.flow", "API: BatchedDepthEstimator._step: compensation, "
+         "B1, erosion, embed, depth", BREAKDOWN),
+    Span("ego.corners", "ego-motion: Shi-Tomasi corners", BREAKDOWN),
+    Span("ego.lk", "ego-motion: windowed LK (the full tracker offline)",
+         "lk_device_ms.batch"),
+    Span("ego.qr", "ego-motion: RANSAC's 8-point QR", "qr_idle_ms.batch"),
+    Span("ego.score", "ego-motion: Sampson distances, inlier counts, the "
+         "winner", BREAKDOWN),
+    Span("ego.pose", "ego-motion: E's decomposition, cheirality, the pick",
+         BREAKDOWN),
+    Span("decode.cost", "multiscale decode: cost volume (every scale's "
+         "match_ssd and softmax)", "cost_device_ms.decode"),
+    Span("decode.select", "multiscale decode: cascade, band WTA, merge, "
+         "tie-break", BREAKDOWN),
+)
+
+_OFF = contextlib.nullcontext()
+
+
+def _profiling() -> bool:
+    return torch._C._autograd._profiler_enabled()
+
+
+# torch._dynamo.assume_constant_result's mark, set without importing
+# torch._dynamo (seconds): torch.compile reads the check as a constant
+_profiling._dynamo_marked_constant = True
+
+
 def profiled_span(name: str):
-    """A named range (``torch.profiler.record_function``): it shows in a
-    trace that ``capture_trace`` captures."""
-    with torch.profiler.record_function(name):
-        yield
+    """A named range (``torch.profiler.record_function``) while a profiler
+    runs: it shows in a trace that ``capture_trace`` captures. Without a
+    profiler, and while torch.compile or torch.export traces, a shared
+    no-op context: the cost is the profiler check."""
+    if not _profiling() or torch.compiler.is_compiling():
+        return _OFF
+    return torch.profiler.record_function(name)
 
 
 TRACE_FILE = "trace.json"
