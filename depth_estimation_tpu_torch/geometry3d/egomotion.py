@@ -43,6 +43,7 @@ import torch.nn.functional as F
 
 from ..models.multiscale import avg_downsample
 from ..utils.timer import profiled_span
+from . import qr_graph
 
 
 class EgoMotion(NamedTuple):
@@ -428,12 +429,13 @@ def _eight_point(p1n: torch.Tensor, p2n: torch.Tensor) -> torch.Tensor:
     """Normalized 8-point: p1n, p2n (..., 8, 2) -> E (..., 3, 3), the
     nullspace of A as the last column of a complete QR of A^T. (Its sign
     depends on the LAPACK build; Sampson scores and the SVD-based
-    decomposition do not.)"""
+    decomposition do not.) On the card the QR is replayed from a CUDA
+    graph, bit for bit eager's (``qr_graph``)."""
     x1, y1 = p1n[..., 0], p1n[..., 1]
     x2, y2 = p2n[..., 0], p2n[..., 1]
     A = torch.stack([x2 * x1, x2 * y1, x2, y2 * x1, y2 * y1, y2, x1, y1,
                      torch.ones_like(x1)], dim=-1)
-    Q, _ = torch.linalg.qr(A.transpose(-1, -2), mode="complete")
+    Q = qr_graph.GRAPHS.complete_q(A)
     return Q[..., :, 8].reshape(Q.shape[:-2] + (3, 3))
 
 

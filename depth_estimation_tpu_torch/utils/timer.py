@@ -22,14 +22,20 @@ and finds the ranges, and the kernels launched inside each, in
 ``traces/step/trace.json``. ``SPANS`` also says what reads each span: a
 per-layer metric of the benchmark (``h100bench/metrics``), or its
 breakdown of the card's idle time by the span the host was in.
+
+The program's own counters sit beside them in ``COUNTERS``, by name
+(``count``), from every thread: how often RANSAC's QR was captured into a
+CUDA graph, replayed from one, or run eagerly (``qr_graph.captures``,
+``qr_graph.replays``, ``qr_graph.eager``; ``geometry3d/qr_graph``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
-from collections import defaultdict
+from collections import Counter, defaultdict
 from typing import Dict, NamedTuple
 
 import torch
@@ -114,6 +120,16 @@ SPANS = (
     Span("decode.select", "multiscale decode: cascade, band WTA, merge, "
          "tie-break", BREAKDOWN),
 )
+
+COUNTERS: Counter = Counter()
+_COUNT_LOCK = threading.Lock()
+
+
+def count(name: str) -> None:
+    """Add one to the program's counter ``name`` (``COUNTERS``)."""
+    with _COUNT_LOCK:
+        COUNTERS[name] += 1
+
 
 _OFF = contextlib.nullcontext()
 

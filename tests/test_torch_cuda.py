@@ -25,6 +25,11 @@ CUDA tensors, and a loaded flow-forward artifact launches B1 once a call
 and equals the live forward. The peak meter's P1 (FMA and exp chains) and
 P2 (1 to 8 logistic chains, at full occupancy and at 4 warps an SM) equal
 their twins at sizes below, at and beyond one value a thread of the card.
+RANSAC's complete QR replayed from CUDA graphs equals eager
+``torch.linalg.qr`` bit for bit at the online program's shape, at B=1,
+S=64 and at an odd B, over replays with new contents, per shape up to the
+cache's bound and eagerly past it, in 32 slices as in one chain, from
+threads sharing the cache, and stays eager inside a caller's capture.
 Every test skips without a CUDA card. This file imports no jax, so it also runs where
 jax is absent:
 
@@ -892,3 +897,109 @@ def test_estimator_auto_equals_a_fixed_block_on_the_card(dev, tmp_path,
     assert len(est._plans) == 1 and fixed._plans == {}
     for a, b in zip(est.next_frames(t2), fixed.next_frames(t2)):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# RANSAC's QR replayed from CUDA graphs (geometry3d/qr_graph): eager's bits
+# ---------------------------------------------------------------------------
+
+def _qr_input(dev, B, S, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    p1 = 0.4 * torch.randn(B, S, 8, 2, generator=g, device=dev)
+    p2 = p1 + 0.02 * torch.randn(B, S, 8, 2, generator=g, device=dev)
+    x1, y1, x2, y2 = p1[..., 0], p1[..., 1], p2[..., 0], p2[..., 1]
+    A = torch.stack([x2 * x1, x2 * y1, x2, y2 * x1, y2 * y1, y2, x1, y1,
+                     torch.ones_like(x1)], dim=-1)
+    return p1, p2, A
+
+
+def _qr_routes():
+    from depth_estimation_tpu_torch.utils.timer import COUNTERS
+    return [COUNTERS[f"qr_graph.{k}"] for k in ("captures", "replays",
+                                                 "eager")]
+
+
+@pytest.mark.parametrize("B,S", [(128, 48), (1, 64), (3, 48)])
+def test_qr_graph_equals_eager_over_replays(dev, B, S):
+    from depth_estimation_tpu_torch.geometry3d import egomotion, qr_graph
+    graphs = qr_graph.QRGraphs()
+    c0, r0, e0 = _qr_routes()
+    for seed in range(4):               # new contents each replay
+        p1, p2, A = _qr_input(dev, B, S, seed)
+        want = qr_graph.eager_q(A)
+        got = graphs.complete_q(A)
+        assert torch.equal(got, want) and got.stride() == want.stride()
+        E = got[..., :, 8].reshape(B, S, 3, 3)
+        assert torch.equal(E, want[..., :, 8].reshape(B, S, 3, 3))
+    assert _qr_routes() == [c0 + 1, r0 + 4, e0]
+    # the program's own path, through the process's cache
+    E = egomotion._eight_point(p1, p2)
+    assert torch.equal(E, want[..., :, 8].reshape(B, S, 3, 3))
+
+
+def test_qr_graph_captures_each_shape_up_to_its_bound(dev):
+    from depth_estimation_tpu_torch.geometry3d import qr_graph
+    graphs = qr_graph.QRGraphs()
+    c0, r0, e0 = _qr_routes()
+    batches = range(2, 3 + qr_graph.MAX_SHAPES)
+    for seed in range(2):
+        for B in batches:
+            _, _, A = _qr_input(dev, B, 48, 10 * seed + B)
+            assert torch.equal(graphs.complete_q(A), qr_graph.eager_q(A))
+    # each shape up to the bound captured once and replayed twice; the
+    # last past the bound, eager
+    n = qr_graph.MAX_SHAPES
+    assert _qr_routes() == [c0 + n, r0 + 2 * n, e0 + 2]
+
+
+def test_qr_graph_slices_give_the_bits_of_one_chain(dev):
+    from depth_estimation_tpu_torch.geometry3d import qr_graph
+    _, _, A = _qr_input(dev, 128, 48, 7)
+    k = qr_graph.slices(128 * 48)
+    assert k == qr_graph.MAX_SLICES
+    one, sliced = qr_graph._Graph(A, 1), qr_graph._Graph(A, k)
+    for seed in (8, 9):
+        _, _, A = _qr_input(dev, 128, 48, seed)
+        want = qr_graph.eager_q(A)
+        assert torch.equal(one(A), want) and torch.equal(sliced(A), want)
+
+
+def test_qr_graph_shared_by_threads(dev):
+    import threading
+    from depth_estimation_tpu_torch.geometry3d import qr_graph
+    graphs = qr_graph.QRGraphs()
+    qr_graph.eager_q(_qr_input(dev, 8, 48, 0)[2])  # torch's linalg loaded
+    bad, errors = [], []
+
+    def worker(t):
+        try:
+            for i in range(5):
+                _, _, A = _qr_input(dev, 8, 48, 100 * t + i)
+                if not torch.equal(graphs.complete_q(A), qr_graph.eager_q(A)):
+                    bad.append((t, i))
+        except Exception as e:          # re-raised below
+            errors.append(e)
+    threads = [threading.Thread(target=worker, args=(t,)) for t in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors
+    assert bad == []
+    assert len(graphs._graphs) == 1     # one device, the default stream
+
+
+def test_qr_graph_stays_eager_inside_a_callers_capture(dev):
+    from depth_estimation_tpu_torch.geometry3d import qr_graph
+    graphs = qr_graph.QRGraphs()
+    _, _, A = _qr_input(dev, 2, 48, 3)
+    want = qr_graph.eager_q(A)
+    torch.cuda.synchronize()
+    c0, r0, e0 = _qr_routes()
+    outer = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(outer):
+        Q = graphs.complete_q(A)
+    outer.replay()
+    assert torch.equal(Q, want)
+    assert _qr_routes() == [c0, r0, e0 + 1] and graphs._graphs == {}
