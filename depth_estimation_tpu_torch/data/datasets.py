@@ -51,6 +51,10 @@ from ..utils.precision import full_f32
 from . import groundtruth as gt_mod
 from .images import ImageLoader, load_image, scale, scale_batched_device, scale_np
 
+# liu cache misses solved together on one device, at most: a chunk bounds
+# the solver's transient memory and fills the card's SMs with B4's clusters
+LIU_CHUNK = 64
+
 
 @dataclasses.dataclass
 class RectifiedPair:
@@ -242,8 +246,8 @@ def load_rectified_pairs_batched(
 ) -> List[RectifiedPair]:
     """The 'sfm' loader over the consecutive pairs (frames[k],
     frames[k + delta]) in one batched pass (``rectify_batch``), then the
-    GT: disk-cache hits read, the exhaustive misses in batched chunks, the
-    liu solves a pair at a time.
+    GT: disk-cache hits read, the misses in batched chunks (the exhaustive
+    matcher's ``chunk``, the liu solver's ``LIU_CHUNK``).
 
     With ``mesh`` (more than one device) the pair stack is split across
     the mesh for the rectification (``parallel.mesh.sharded_rectify_fn``,
@@ -276,9 +280,9 @@ def load_rectified_pairs_batched(
             >= cal.bad_image_threshold for k in range(B)]
 
     gts: Dict[int, Tuple] = {}
-    if compute_gt and groundtruth == "liu" and sharded:
-        # cache hits from disk, every miss through the batched solver
-        # split across the mesh
+    if compute_gt and groundtruth == "liu":
+        # cache hits from disk, every miss through the batched solver:
+        # split across the mesh, or LIU_CHUNK pairs at a time on one device
         misses = []
         for k in range(B):
             if not good[k]:
@@ -292,7 +296,7 @@ def load_rectified_pairs_batched(
                         gts[k] = (z["fy"], z["fx"], None)
                         continue
             misses.append(k)
-        if misses:
+        if misses and sharded:
             celiu_fn = pm.sharded_celiu_fn(
                 mesh, alpha=0.005, ratio=0.75, min_width=30,
                 n_outer=5, n_inner=1, n_sor=40)
@@ -300,18 +304,21 @@ def load_rectified_pairs_batched(
             im2, _ = pm.pad_to_multiple(img_s[misses], mesh.size)
             vx, vy, _w = celiu_fn(im1, im2)
             vx, vy = np.asarray(vx)[:n_real], np.asarray(vy)[:n_real]
-            for j, k in enumerate(misses):
-                gts[k] = (vy[j], vx[j], None)
-                name = names[k] if names else ""
-                if cache_root is not None and name:
-                    gt_mod.store_cached_liu_flow(cache_root, geom, 1, name,
-                                                 vy[j], vx[j])
-    elif compute_gt and groundtruth == "liu":
-        for k in range(B):
-            if good[k]:
-                name = names[k] if names else ""
-                gts[k] = _compute_gt(geom, warped[k], img_s[k], cache_root,
-                                     name, "liu", dev)
+        elif misses:
+            vxs, vys = [], []
+            for a in range(0, len(misses), LIU_CHUNK):
+                chunk = misses[a:a + LIU_CHUNK]
+                cx, cy = gt_mod.liu_flow_batched(as_f32(warped[chunk], dev),
+                                                 as_f32(img_s[chunk], dev))
+                vxs.append(cx.cpu().numpy())
+                vys.append(cy.cpu().numpy())
+            vx, vy = np.concatenate(vxs), np.concatenate(vys)
+        for j, k in enumerate(misses):
+            gts[k] = (vy[j], vx[j], None)
+            name = names[k] if names else ""
+            if cache_root is not None and name:
+                gt_mod.store_cached_liu_flow(cache_root, geom, 1, name,
+                                             vy[j], vx[j])
     elif compute_gt:
         method = "mean" if groundtruth == "cc-mean" else "max"
         misses = []

@@ -8,7 +8,8 @@
     same sum as matching unfolded patches.
   * ``liu_flow`` — the 'liu' ground truth: Ce Liu's variational solver
     (``flow.celiu.coarse2fine_flow``, kernel B4 on the card) with the
-    trainer's parameters.
+    trainer's parameters; ``liu_flow_batched`` solves a stack of pairs
+    together on their device.
   * Disk caches with the reference's parameter-encoded layout,
     ``flow/<W>x<H>/<maxw>x<kw>/<method>/<delta>/<name>.npz`` and
     ``flow_liu/<W>x<H>/<delta>/<name>.npz``: the same files are read and
@@ -170,6 +171,23 @@ def liu_flow(
                                  min_width=min_width, n_outer=n_outer,
                                  n_inner=n_inner, n_sor=n_sor, device=device)
     return vy.cpu().numpy(), vx.cpu().numpy()
+
+
+@full_f32()
+@torch.no_grad()
+def liu_flow_batched(
+    im1s: torch.Tensor, im2s: torch.Tensor, *,
+    alpha: float = 0.005, ratio: float = 0.75, min_width: int = 30,
+    n_outer: int = 5, n_inner: int = 1, n_sor: int = 40,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The 'liu' GT of B pairs at once: (B, H, W, 3) f32 tensors, solved
+    where they lie (``coarse2fine_flow_batched``) with the trainer's
+    parameters. Returns (vx, vy), each (B, H, W), on that device."""
+    from ..flow.celiu import coarse2fine_flow_batched
+    vx, vy, _ = coarse2fine_flow_batched(
+        im1s, im2s, alpha=alpha, ratio=ratio, min_width=min_width,
+        n_outer=n_outer, n_inner=n_inner, n_sor=n_sor)
+    return vx, vy
 
 
 def liu_cache_path(root: str, geom: Geometry, delta: int, name: str) -> str:

@@ -13,6 +13,14 @@
   * bilinear (packed taps) or bicubic Hermite warping, out-of-range pixels
     taking frame-1 values.
 
+Spans (``utils/timer.SPANS``, ranges only while a profiler runs):
+``liu.pyramid`` (both pyramids, then each level's ``im2feature``),
+``liu.irls`` (an IRLS step's derivatives, Phi and Psi, the coefficient
+planes and the Laplacian), ``liu.sor`` (the SOR solve), ``liu.warp`` (the
+flow's upsampling between levels, each outer step's update, warp and noise
+estimate, and the final warp). Counters (``utils/timer.COUNTERS``):
+``liu.levels`` a level solved, ``liu.irls_steps`` an outer IRLS step.
+
 Layout: images are (..., H, W, C) float32 in [0, 1], flow fields (..., H,
 W); leading dims are independent pairs solved together. vx = x (column)
 flow, vy = y (row) flow.
@@ -34,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.device import as_f32
+from ..utils.timer import count, profiled_span
 from .sor_kernel import sor_redblack
 
 # ---------------------------------------------------------------------------
@@ -458,69 +467,73 @@ def smooth_flow_sor(im1f, im2f, warp, u, v, lap_para, alpha,
     omega = 1.8
 
     for _ in range(n_outer):
-        imdx, imdy, imdt = get_dxs(im1f, warp)
-        du = torch.zeros_like(u)
-        dv = torch.zeros_like(v)
-
+        count("liu.irls_steps")
         for hh in range(n_inner):
-            uu = u if hh == 0 else u + du
-            vv = v if hh == 0 else v + dv
-            ux = dx_forward(uu[..., None])[..., 0]
-            uy = dy_forward(uu[..., None])[..., 0]
-            vx_ = dx_forward(vv[..., None])[..., 0]
-            vy_ = dy_forward(vv[..., None])[..., 0]
-            phi = 0.5 / torch.sqrt(ux * ux + uy * uy + vx_ * vx_ + vy_ * vy_
-                                   + eps_phi)
+            with profiled_span("liu.irls"):
+                if hh == 0:
+                    imdx, imdy, imdt = get_dxs(im1f, warp)
+                    du = torch.zeros_like(u)
+                    dv = torch.zeros_like(v)
+                uu = u if hh == 0 else u + du
+                vv = v if hh == 0 else v + dv
+                ux = dx_forward(uu[..., None])[..., 0]
+                uy = dy_forward(uu[..., None])[..., 0]
+                vx_ = dx_forward(vv[..., None])[..., 0]
+                vy_ = dy_forward(vv[..., None])[..., 0]
+                phi = 0.5 / torch.sqrt(ux * ux + uy * uy + vx_ * vx_
+                                       + vy_ * vy_ + eps_phi)
 
-            temp = imdt + imdx * du[..., None] + imdy * dv[..., None]
+                temp = imdt + imdx * du[..., None] + imdy * dv[..., None]
+                if noise_model == "gmm":
+                    psi = gmm_psi(temp, gm)
+                else:
+                    psi = 1.0 / (2.0 * torch.sqrt(temp * temp + eps_psi))
+                    # channels whose estimated noise is ~0 keep psi = 0
+                    psi = psi * (lap_para[..., None, None, :] >= 1e-20)
+
+                # collapse = channel average
+                imdxy = torch.mean(psi * imdx * imdy, dim=-1)
+                imdx2 = torch.mean(psi * imdx * imdx, dim=-1)
+                imdy2 = torch.mean(psi * imdy * imdy, dim=-1)
+                imdtdx = torch.mean(psi * imdx * imdt, dim=-1)
+                imdtdy = torch.mean(psi * imdy * imdt, dim=-1)
+
+                # weighted Laplacian of the current flow (divergence form)
+                def lap(f):
+                    fh = dx_forward(f[..., None])[..., 0] * phi
+                    fv = dy_forward(f[..., None])[..., 0] * phi
+                    out = -fh - fv
+                    out = out + F.pad(fh[..., :, :-1], (1, 0))
+                    out = out + F.pad(fv[..., :-1, :], (0, 0, 1, 0))
+                    return out
+
+                b1 = -imdtdx - alpha * lap(u)
+                b2 = -imdtdy - alpha * lap(v)
+
+                w_w, w_e, w_n, w_s = _neighbor_weights(phi)
+                coeff = alpha * (w_w + w_e + w_n + w_s)
+                denom_u = imdx2 + alpha * 0.05 + coeff
+                denom_v = imdy2 + alpha * 0.05 + coeff
+
+            with profiled_span("liu.sor"):
+                if hh == 0:
+                    du, dv = sor_redblack(w_w, w_e, w_n, w_s, denom_u,
+                                          denom_v, b1, b2, imdxy, alpha=alpha,
+                                          n_sor=n_sor, omega=omega)
+                else:
+                    du, dv = sor_plain(w_w, w_e, w_n, w_s, denom_u, denom_v,
+                                       b1, b2, imdxy, alpha=alpha,
+                                       n_sor=n_sor, omega=omega, du=du, dv=dv)
+
+        with profiled_span("liu.warp"):
+            u = u + du
+            v = v + dv
+            warp = _WARPERS[interpolation](im1f, im2f, u, v)
+
             if noise_model == "gmm":
-                psi = gmm_psi(temp, gm)
+                gm = est_gaussian_mixture(im1f, warp, gm)
             else:
-                psi = 1.0 / (2.0 * torch.sqrt(temp * temp + eps_psi))
-                # channels whose estimated noise is ~0 keep psi = 0
-                psi = psi * (lap_para[..., None, None, :] >= 1e-20)
-
-            # collapse = channel average
-            imdxy = torch.mean(psi * imdx * imdy, dim=-1)
-            imdx2 = torch.mean(psi * imdx * imdx, dim=-1)
-            imdy2 = torch.mean(psi * imdy * imdy, dim=-1)
-            imdtdx = torch.mean(psi * imdx * imdt, dim=-1)
-            imdtdy = torch.mean(psi * imdy * imdt, dim=-1)
-
-            # weighted Laplacian of the current flow (divergence form)
-            def lap(f):
-                fh = dx_forward(f[..., None])[..., 0] * phi
-                fv = dy_forward(f[..., None])[..., 0] * phi
-                out = -fh - fv
-                out = out + F.pad(fh[..., :, :-1], (1, 0))
-                out = out + F.pad(fv[..., :-1, :], (0, 0, 1, 0))
-                return out
-
-            b1 = -imdtdx - alpha * lap(u)
-            b2 = -imdtdy - alpha * lap(v)
-
-            w_w, w_e, w_n, w_s = _neighbor_weights(phi)
-            coeff = alpha * (w_w + w_e + w_n + w_s)
-            denom_u = imdx2 + alpha * 0.05 + coeff
-            denom_v = imdy2 + alpha * 0.05 + coeff
-
-            if hh == 0:
-                du, dv = sor_redblack(w_w, w_e, w_n, w_s, denom_u, denom_v,
-                                      b1, b2, imdxy, alpha=alpha, n_sor=n_sor,
-                                      omega=omega)
-            else:
-                du, dv = sor_plain(w_w, w_e, w_n, w_s, denom_u, denom_v,
-                                   b1, b2, imdxy, alpha=alpha, n_sor=n_sor,
-                                   omega=omega, du=du, dv=dv)
-
-        u = u + du
-        v = v + dv
-        warp = _WARPERS[interpolation](im1f, im2f, u, v)
-
-        if noise_model == "gmm":
-            gm = est_gaussian_mixture(im1f, warp, gm)
-        else:
-            lap_para = laplacian_noise(im1f, warp)
+                lap_para = laplacian_noise(im1f, warp)
     return u, v, warp, lap_para, gm
 
 
@@ -557,8 +570,9 @@ def coarse2fine_flow(
     im2 = _as_image(im2, device).to(im1.device)
     if im1.ndim == 2:
         im1, im2 = im1[..., None], im2[..., None]
-    pyr1 = build_pyramid(im1, ratio, min_width)
-    pyr2 = build_pyramid(im2, ratio, min_width)
+    with profiled_span("liu.pyramid"):
+        pyr1 = build_pyramid(im1, ratio, min_width)
+        pyr2 = build_pyramid(im2, ratio, min_width)
     if ratio > 0.98 or ratio < 0.4:
         ratio = 0.75
 
@@ -573,23 +587,27 @@ def coarse2fine_flow(
 
     u = v = warp = None
     for k in range(len(pyr1) - 1, -1, -1):
-        f1 = im2feature(pyr1[k])
-        f2 = im2feature(pyr2[k])
+        count("liu.levels")
+        with profiled_span("liu.pyramid"):
+            f1 = im2feature(pyr1[k])
+            f2 = im2feature(pyr2[k])
         h, w = f1.shape[-3], f1.shape[-2]
         if u is None:
             u = torch.zeros(lead + (h, w), dtype=torch.float32, device=f1.device)
             v = torch.zeros(lead + (h, w), dtype=torch.float32, device=f1.device)
             warp = f2
         else:
-            u = imresize(u[..., None], h, w)[..., 0] * (1 / ratio)
-            v = imresize(v[..., None], h, w)[..., 0] * (1 / ratio)
-            warp = _WARPERS[interpolation](f1, f2, u, v)
+            with profiled_span("liu.warp"):
+                u = imresize(u[..., None], h, w)[..., 0] * (1 / ratio)
+                v = imresize(v[..., None], h, w)[..., 0] * (1 / ratio)
+                warp = _WARPERS[interpolation](f1, f2, u, v)
         u, v, warp, lap_para, gm = smooth_flow_sor(
             f1, f2, warp, u, v, lap_para, alpha,
             n_outer + k, n_inner, n_sor + k * 3,
             noise_model=noise_model, gm=gm, interpolation=interpolation,
         )
-    warped = _WARPERS[interpolation](im1, im2, u, v).clamp(0.0, 1.0)
+    with profiled_span("liu.warp"):
+        warped = _WARPERS[interpolation](im1, im2, u, v).clamp(0.0, 1.0)
     return u, v, warped
 
 

@@ -7,9 +7,10 @@ trace of CPU and CUDA activity.
 
 The program's own spans are declared once, in ``SPANS``: the online
 step's three stages (``online.*``, ``api_batched``), ego-motion's five
-(``ego.*``, ``geometry3d/egomotion``) and the multiscale decode's two
-(``decode.*``, ``models/multiscale``). Each records only while a
-``torch.profiler`` runs, and then as a ``record_function`` range stamped
+(``ego.*``, ``geometry3d/egomotion``), the multiscale decode's two
+(``decode.*``, ``models/multiscale``) and Ce Liu's solve's four
+(``liu.*``, ``flow/celiu``). Each records only while a ``torch.profiler``
+runs, and then as a ``record_function`` range stamped
 on the profiler's clock, the clock of its CUDA kernel records; otherwise,
 and while ``torch.compile`` or ``torch.export`` traces, a span is one
 check and no range. An operator captures them by running the program
@@ -26,7 +27,9 @@ breakdown of the card's idle time by the span the host was in.
 The program's own counters sit beside them in ``COUNTERS``, by name
 (``count``), from every thread: how often RANSAC's QR was captured into a
 CUDA graph, replayed from one, or run eagerly (``qr_graph.captures``,
-``qr_graph.replays``, ``qr_graph.eager``; ``geometry3d/qr_graph``).
+``qr_graph.replays``, ``qr_graph.eager``; ``geometry3d/qr_graph``), and
+how many pyramid levels and outer IRLS steps Ce Liu's solve made
+(``liu.levels``, ``liu.irls_steps``; ``flow/celiu``).
 """
 
 from __future__ import annotations
@@ -119,6 +122,14 @@ SPANS = (
          "match_ssd and softmax)", "cost_device_ms.decode"),
     Span("decode.select", "multiscale decode: cascade, band WTA, merge, "
          "tie-break", BREAKDOWN),
+    Span("liu.pyramid", "liu solve: both Gaussian pyramids, each level's "
+         "im2feature", BREAKDOWN),
+    Span("liu.irls", "liu solve: an IRLS step's derivatives, Phi, Psi, "
+         "coefficient planes, Laplacian", "irls_idle_ms.liu"),
+    Span("liu.sor", "liu solve: the red-black SOR (kernel B4 on the card)",
+         BREAKDOWN),
+    Span("liu.warp", "liu solve: upsampling between levels, each outer "
+         "step's update, warp and noise estimate", "warp_device_ms.liu"),
 )
 
 COUNTERS: Counter = Counter()

@@ -20,11 +20,13 @@ probe in every mode; B1's two pixels a thread at widths that cut a
 thread's pair and at images smaller than one tile. The training slice
 has no kernel of its own: its trainers (3 criteria, and the multiscale
 trainer) are held card vs CPU, and the 'liu' GT of a pair loader is held
-to launch B4. B1 and B3 pass ``torch.library.opcheck`` as operators on
-CUDA tensors, and a loaded flow-forward artifact launches B1 once a call
-and equals the live forward. The peak meter's P1 (FMA and exp chains) and
-P2 (1 to 8 logistic chains, at full occupancy and at 4 warps an SM) equal
-their twins at sizes below, at and beyond one value a thread of the card.
+to launch B4; the batched liu GT at the benchmark cell's shapes launches
+B4 68 times and equals the plain reference on the card. B1 and B3 pass
+``torch.library.opcheck`` as operators on CUDA tensors, and a loaded
+flow-forward artifact launches B1 once a call and equals the live
+forward. The peak meter's P1 (FMA and exp chains) and P2 (1 to 8
+logistic chains, at full occupancy and at 4 warps an SM) equal their twins
+at sizes below, at and beyond one value a thread of the card.
 RANSAC's complete QR replayed from CUDA graphs equals eager
 ``torch.linalg.qr`` bit for bit at the online program's shape, at B=1,
 S=64 and at an odd B, over replays with new contents, per shape up to the
@@ -706,6 +708,31 @@ def test_liu_ground_truth_of_a_pair_launches_b4(dev):
     assert sor_kernel.sor_redblack.launches > n0
     assert pair.good and pair.flow.shape == (2, 48, 64)
     assert np.isfinite(pair.flow).all()
+
+
+def test_liu_flow_batched_at_the_cells_shapes_equals_the_reference(dev):
+    """One batched liu solve at the benchmark cell's shapes (B=64, 180x320,
+    the trainer's schedule: 8 levels, 68 IRLS steps) launches B4 once an
+    IRLS step and equals the plain reference (``torch_reference/liu.py``)
+    on the card bit for bit."""
+    from depth_estimation_tpu_torch.data import groundtruth
+    from depth_estimation_tpu_torch.flow import sor_kernel
+    from torch_reference import liu as ref
+    g = torch.Generator(device=dev).manual_seed(20)
+    base = torch.rand((64, 3, 47, 82), generator=g, device=dev)
+    base = torch.nn.functional.interpolate(base, (182, 324), mode="bilinear")
+    base = base.permute(0, 2, 3, 1)
+    im1 = base[:, 1:181, 3:323].contiguous()
+    im2 = base[:, :180, :320].contiguous()
+    n0 = sor_kernel.sor_redblack.launches
+    vx, vy = groundtruth.liu_flow_batched(im1, im2)
+    torch.cuda.synchronize()
+    assert sor_kernel.sor_redblack.launches == n0 + 68
+    assert vx.shape == vy.shape == (64, 180, 320) and vx.device == im1.device
+    rx, ry, _ = ref.coarse_to_fine(im1, im2)
+    gap = max(float((vx - rx).abs().max()), float((vy - ry).abs().max()))
+    assert 1.0 < float(vx.abs().mean()) < 5.0
+    assert gap == 0.0, gap
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,8 @@
 """The program's own spans (``utils/timer.SPANS``): each is opened where the
 table says and nowhere else, under no name the benchmark's wrappers use;
 under a profiler an online step and a staged multiscale decode record
-every one, nested as declared; without a profiler, and while torch.export
-traces, a span enters no ``record_function``."""
+every one, nested as declared, as does a liu solve; without a profiler,
+and while torch.export traces, a span enters no ``record_function``."""
 
 import dataclasses
 import json
@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from depth_estimation_tpu_torch import api_batched
+from depth_estimation_tpu_torch.flow import celiu
 from depth_estimation_tpu_torch.geometry import Geometry
 from depth_estimation_tpu_torch.geometry3d import calibration
 from depth_estimation_tpu_torch.models import multiscale
@@ -24,7 +25,7 @@ PACKAGE = Path(api_batched.__file__).resolve().parent
 # (h100bench/paths/*.py, h100bench/trace.STEP): a program span under one of
 # them would be counted as the wrapper's
 RESERVED = {"step", "api", "ego", "trunk", "match", "pyramid", "decode",
-            "match_ssd"}
+            "match_ssd", "solve", "sor"}
 # each span's module, and the program span it lies inside
 WHERE = {"online.prep": ("api_batched.py", None),
          "online.ego": ("api_batched.py", None),
@@ -35,9 +36,21 @@ WHERE = {"online.prep": ("api_batched.py", None),
          "ego.score": ("geometry3d/egomotion.py", "online.ego"),
          "ego.pose": ("geometry3d/egomotion.py", "online.ego"),
          "decode.cost": ("models/multiscale.py", None),
-         "decode.select": ("models/multiscale.py", None)}
-# instances a step (the online program) or a call (the decode)
-OPENS = dict.fromkeys(WHERE, 1) | {"ego.score": 2}
+         "decode.select": ("models/multiscale.py", None),
+         "liu.pyramid": ("flow/celiu.py", None),
+         "liu.irls": ("flow/celiu.py", None),
+         "liu.sor": ("flow/celiu.py", None),
+         "liu.warp": ("flow/celiu.py", None)}
+# the liu solve below: 3 levels of 1 + k outer steps (k = 0, 1, 2)
+LIU_KW = dict(alpha=0.005, ratio=0.75, min_width=13, n_outer=1, n_inner=1,
+              n_sor=2)
+LIU_LEVELS, LIU_STEPS = 3, 6
+# instances a step (the online program) or a call (the decode, the liu
+# solve: the pyramids then a level's features; an outer step's IRLS, SOR
+# and warp; the upsampling between levels and the final warp)
+OPENS = dict.fromkeys(WHERE, 1) | {
+    "ego.score": 2, "liu.pyramid": 1 + LIU_LEVELS, "liu.irls": LIU_STEPS,
+    "liu.sor": LIU_STEPS, "liu.warp": LIU_STEPS + LIU_LEVELS}
 NAMES = [s.name for s in timer.SPANS]
 
 
@@ -92,10 +105,18 @@ def _decoder():
     return model, imgs
 
 
+def _liu_pair():
+    gen = torch.Generator().manual_seed(9)
+    base = torch.rand((1, 3, 8, 12), generator=gen)
+    base = torch.nn.functional.interpolate(base, (24, 34), mode="bilinear")
+    base = base.permute(0, 2, 3, 1)
+    return base[:, :, :32], base[:, :, 2:]
+
+
 @pytest.fixture(scope="module")
 def programs():
     torch.manual_seed(0)
-    return _estimator(), _decoder()
+    return _estimator(), _decoder(), _liu_pair()
 
 
 def _ranges(log_dir):
@@ -109,11 +130,15 @@ def _ranges(log_dir):
 
 
 def test_a_step_and_a_decode_record_every_span_nested(programs, tmp_path):
-    (est, frames), (model, imgs) = programs
+    (est, frames), (model, imgs), pair = programs
+    before = dict(timer.COUNTERS)
     with timer.capture_trace(str(tmp_path)) as started:
         est.next_frames(frames)
         model.decode_full_staged(*imgs)
+        celiu.coarse2fine_flow_batched(*pair, **LIU_KW)
     assert started
+    for name, n in (("liu.levels", LIU_LEVELS), ("liu.irls_steps", LIU_STEPS)):
+        assert timer.COUNTERS[name] - before.get(name, 0) == n
     ranges = _ranges(tmp_path)
     for name, (_, parent) in WHERE.items():
         assert len(ranges.get(name, ())) == OPENS[name], name
@@ -134,10 +159,11 @@ def _no_range(*args, **kwargs):
 
 def test_without_a_profiler_a_span_enters_no_range(programs, monkeypatch,
                                                    tmp_path):
-    (est, frames), (model, imgs) = programs
+    (est, frames), (model, imgs), pair = programs
     monkeypatch.setattr(torch.profiler, "record_function", _no_range)
     est.next_frames(frames)
     model.decode_full_staged(*imgs)
+    celiu.coarse2fine_flow_batched(*pair, **LIU_KW)
     # the patch is live: under a profiler the same span raises
     with timer.capture_trace(str(tmp_path)):
         with pytest.raises(AssertionError, match="record_function"):
@@ -151,7 +177,7 @@ def test_without_a_profiler_a_span_enters_no_range(programs, monkeypatch,
 
 def test_an_export_under_a_profiler_holds_no_profiler_node(programs,
                                                            tmp_path):
-    _, (model, imgs) = programs
+    _, (model, imgs), _ = programs
 
     class Decode(torch.nn.Module):
         def forward(self, a, b):
