@@ -13,13 +13,19 @@
   * bilinear (packed taps) or bicubic Hermite warping, out-of-range pixels
     taking frame-1 values.
 
+The first inner IRLS step's planes (``_irls_planes``) replay on the card
+from a CUDA graph captured once per level shape (``flow/irls_graph``), bit
+for bit eager's; a warm start's steps run eagerly.
+
 Spans (``utils/timer.SPANS``, ranges only while a profiler runs):
 ``liu.pyramid`` (both pyramids, then each level's ``im2feature``),
 ``liu.irls`` (an IRLS step's derivatives, Phi and Psi, the coefficient
-planes and the Laplacian), ``liu.sor`` (the SOR solve), ``liu.warp`` (the
-flow's upsampling between levels, each outer step's update, warp and noise
-estimate, and the final warp). Counters (``utils/timer.COUNTERS``):
-``liu.levels`` a level solved, ``liu.irls_steps`` an outer IRLS step.
+planes and the Laplacian: a graph's replay on the card), ``liu.sor`` (the
+SOR solve), ``liu.warp`` (the flow's upsampling between levels, each outer
+step's update, warp and noise estimate, and the final warp). Counters
+(``utils/timer.COUNTERS``): ``liu.levels`` a level solved,
+``liu.irls_steps`` an outer IRLS step, and ``irls_graph``'s
+``liu_graph.captures``, ``.replays``, ``.eager``.
 
 Layout: images are (..., H, W, C) float32 in [0, 1], flow fields (..., H,
 W); leading dims are independent pairs solved together. vx = x (column)
@@ -43,6 +49,7 @@ import torch.nn.functional as F
 
 from ..utils.device import as_f32
 from ..utils.timer import count, profiled_span
+from . import irls_graph
 from .sor_kernel import sor_redblack
 
 # ---------------------------------------------------------------------------
@@ -450,6 +457,66 @@ def sor_plain(w_w, w_e, w_n, w_s, denom_u, denom_v, b1, b2, imdxy,
     return du, dv
 
 
+def _irls_planes(im1f, warp, u, v, lap_para, *gm, alpha: float,
+                 noise_model: str, du=None, dv=None):
+    """An IRLS step's derivatives, Phi, Psi, channel means, weighted
+    Laplacians and the SOR's coefficient planes. Shapes as in
+    ``smooth_flow_sor``; ``gm`` the mixture's three tensors under 'gmm',
+    none under 'lap'. ``du``/``dv`` None: the first inner step, whose
+    increments are zeros; else a warm start's increments (its derivatives,
+    computed again, are the first step's bit for bit). Returns (w_w, w_e,
+    w_n, w_s, denom_u, denom_v, b1, b2, imdxy), the arguments of
+    ``sor_redblack`` and ``sor_plain``."""
+    eps_phi = 1e-6
+    eps_psi = 1e-6
+    imdx, imdy, imdt = get_dxs(im1f, warp)
+    if du is None:
+        du = torch.zeros_like(u)
+        dv = torch.zeros_like(v)
+        uu, vv = u, v
+    else:
+        uu, vv = u + du, v + dv
+    ux = dx_forward(uu[..., None])[..., 0]
+    uy = dy_forward(uu[..., None])[..., 0]
+    vx_ = dx_forward(vv[..., None])[..., 0]
+    vy_ = dy_forward(vv[..., None])[..., 0]
+    phi = 0.5 / torch.sqrt(ux * ux + uy * uy + vx_ * vx_
+                           + vy_ * vy_ + eps_phi)
+
+    temp = imdt + imdx * du[..., None] + imdy * dv[..., None]
+    if noise_model == "gmm":
+        psi = gmm_psi(temp, gm)
+    else:
+        psi = 1.0 / (2.0 * torch.sqrt(temp * temp + eps_psi))
+        # channels whose estimated noise is ~0 keep psi = 0
+        psi = psi * (lap_para[..., None, None, :] >= 1e-20)
+
+    # collapse = channel average
+    imdxy = torch.mean(psi * imdx * imdy, dim=-1)
+    imdx2 = torch.mean(psi * imdx * imdx, dim=-1)
+    imdy2 = torch.mean(psi * imdy * imdy, dim=-1)
+    imdtdx = torch.mean(psi * imdx * imdt, dim=-1)
+    imdtdy = torch.mean(psi * imdy * imdt, dim=-1)
+
+    # weighted Laplacian of the current flow (divergence form)
+    def lap(f):
+        fh = dx_forward(f[..., None])[..., 0] * phi
+        fv = dy_forward(f[..., None])[..., 0] * phi
+        out = -fh - fv
+        out = out + F.pad(fh[..., :, :-1], (1, 0))
+        out = out + F.pad(fv[..., :-1, :], (0, 0, 1, 0))
+        return out
+
+    b1 = -imdtdx - alpha * lap(u)
+    b2 = -imdtdy - alpha * lap(v)
+
+    w_w, w_e, w_n, w_s = _neighbor_weights(phi)
+    coeff = alpha * (w_w + w_e + w_n + w_s)
+    denom_u = imdx2 + alpha * 0.05 + coeff
+    denom_v = imdy2 + alpha * 0.05 + coeff
+    return w_w, w_e, w_n, w_s, denom_u, denom_v, b1, b2, imdxy
+
+
 def smooth_flow_sor(im1f, im2f, warp, u, v, lap_para, alpha,
                     n_outer: int, n_inner: int, n_sor: int,
                     noise_model: str = "lap", gm=None,
@@ -458,72 +525,35 @@ def smooth_flow_sor(im1f, im2f, warp, u, v, lap_para, alpha,
     images/warp (..., H, W, C), flows (..., H, W), lap_para (..., C).
     Returns (u, v, warp, lap_para, gm).
 
-    The SOR solve from a zero start (the first inner step, and every step of
-    the reference's schedules, which use n_inner = 1) goes through
-    ``sor_redblack``: kernel B4 for a CUDA tensor, ``sor_plain`` for a CPU
-    tensor. A warm start (n_inner > 1) runs ``sor_plain``."""
-    eps_phi = 1e-6
-    eps_psi = 1e-6
+    The first inner step's planes (``_irls_planes``) replay from a CUDA
+    graph where the input allows (``irls_graph.GRAPHS``); a warm start's
+    run eagerly. The SOR solve from a zero start (the first inner step, and
+    every step of the reference's schedules, which use n_inner = 1) goes
+    through ``sor_redblack``: kernel B4 for a CUDA tensor, ``sor_plain`` for
+    a CPU tensor. A warm start (n_inner > 1) runs ``sor_plain``."""
     omega = 1.8
 
     for _ in range(n_outer):
         count("liu.irls_steps")
         for hh in range(n_inner):
             with profiled_span("liu.irls"):
+                tensors = (im1f, warp, u, v, lap_para, *(gm or ()))
                 if hh == 0:
-                    imdx, imdy, imdt = get_dxs(im1f, warp)
-                    du = torch.zeros_like(u)
-                    dv = torch.zeros_like(v)
-                uu = u if hh == 0 else u + du
-                vv = v if hh == 0 else v + dv
-                ux = dx_forward(uu[..., None])[..., 0]
-                uy = dy_forward(uu[..., None])[..., 0]
-                vx_ = dx_forward(vv[..., None])[..., 0]
-                vy_ = dy_forward(vv[..., None])[..., 0]
-                phi = 0.5 / torch.sqrt(ux * ux + uy * uy + vx_ * vx_
-                                       + vy_ * vy_ + eps_phi)
-
-                temp = imdt + imdx * du[..., None] + imdy * dv[..., None]
-                if noise_model == "gmm":
-                    psi = gmm_psi(temp, gm)
+                    planes = irls_graph.GRAPHS.replay(
+                        _irls_planes, tensors, alpha=alpha,
+                        noise_model=noise_model)
                 else:
-                    psi = 1.0 / (2.0 * torch.sqrt(temp * temp + eps_psi))
-                    # channels whose estimated noise is ~0 keep psi = 0
-                    psi = psi * (lap_para[..., None, None, :] >= 1e-20)
-
-                # collapse = channel average
-                imdxy = torch.mean(psi * imdx * imdy, dim=-1)
-                imdx2 = torch.mean(psi * imdx * imdx, dim=-1)
-                imdy2 = torch.mean(psi * imdy * imdy, dim=-1)
-                imdtdx = torch.mean(psi * imdx * imdt, dim=-1)
-                imdtdy = torch.mean(psi * imdy * imdt, dim=-1)
-
-                # weighted Laplacian of the current flow (divergence form)
-                def lap(f):
-                    fh = dx_forward(f[..., None])[..., 0] * phi
-                    fv = dy_forward(f[..., None])[..., 0] * phi
-                    out = -fh - fv
-                    out = out + F.pad(fh[..., :, :-1], (1, 0))
-                    out = out + F.pad(fv[..., :-1, :], (0, 0, 1, 0))
-                    return out
-
-                b1 = -imdtdx - alpha * lap(u)
-                b2 = -imdtdy - alpha * lap(v)
-
-                w_w, w_e, w_n, w_s = _neighbor_weights(phi)
-                coeff = alpha * (w_w + w_e + w_n + w_s)
-                denom_u = imdx2 + alpha * 0.05 + coeff
-                denom_v = imdy2 + alpha * 0.05 + coeff
+                    planes = irls_graph.run_eager(
+                        _irls_planes, tensors, alpha=alpha,
+                        noise_model=noise_model, du=du, dv=dv)
 
             with profiled_span("liu.sor"):
                 if hh == 0:
-                    du, dv = sor_redblack(w_w, w_e, w_n, w_s, denom_u,
-                                          denom_v, b1, b2, imdxy, alpha=alpha,
-                                          n_sor=n_sor, omega=omega)
+                    du, dv = sor_redblack(*planes, alpha=alpha, n_sor=n_sor,
+                                          omega=omega)
                 else:
-                    du, dv = sor_plain(w_w, w_e, w_n, w_s, denom_u, denom_v,
-                                       b1, b2, imdxy, alpha=alpha,
-                                       n_sor=n_sor, omega=omega, du=du, dv=dv)
+                    du, dv = sor_plain(*planes, alpha=alpha, n_sor=n_sor,
+                                       omega=omega, du=du, dv=dv)
 
         with profiled_span("liu.warp"):
             u = u + du

@@ -29,7 +29,10 @@ The program's own counters sit beside them in ``COUNTERS``, by name
 CUDA graph, replayed from one, or run eagerly (``qr_graph.captures``,
 ``qr_graph.replays``, ``qr_graph.eager``; ``geometry3d/qr_graph``), and
 how many pyramid levels and outer IRLS steps Ce Liu's solve made
-(``liu.levels``, ``liu.irls_steps``; ``flow/celiu``).
+(``liu.levels``, ``liu.irls_steps``; ``flow/celiu``), and how often an
+IRLS step's planes were captured, replayed or run eagerly
+(``liu_graph.captures``, ``liu_graph.replays``, ``liu_graph.eager``;
+``flow/irls_graph``).
 """
 
 from __future__ import annotations

@@ -32,6 +32,11 @@ RANSAC's complete QR replayed from CUDA graphs equals eager
 S=64 and at an odd B, over replays with new contents, per shape up to the
 cache's bound and eagerly past it, in 32 slices as in one chain, from
 threads sharing the cache, and stays eager inside a caller's capture.
+The liu solve's IRLS planes replayed from CUDA graphs equal eager's bit
+for bit over whole solves (180x320, B=2, the trainer's schedule: a
+capture a level, 68 replays a solve; gmm with bicubic warps), run eagerly
+and counted past the cache's bound, inside a caller's capture and for a
+new key under a profiler, and serve threads sharing the cache.
 Every test skips without a CUDA card. This file imports no jax, so it also runs where
 jax is absent:
 
@@ -1030,3 +1035,171 @@ def test_qr_graph_stays_eager_inside_a_callers_capture(dev):
     outer.replay()
     assert torch.equal(Q, want)
     assert _qr_routes() == [c0, r0, e0 + 1] and graphs._graphs == {}
+
+
+# ---------------------------------------------------------------------------
+# The liu solve's IRLS planes replayed from CUDA graphs (flow/irls_graph):
+# eager's bits
+# ---------------------------------------------------------------------------
+
+# the trainer's 'liu' schedule: 8 levels and 68 IRLS steps at 180x320
+_LIU = dict(alpha=0.005, ratio=0.75, min_width=30, n_outer=5, n_inner=1,
+            n_sor=40)
+
+
+def _liu_pair(dev, B, H, W, seed):
+    """(im1, im2) (B, H, W, 3): a smooth random scene moved by (1, 3) px."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    base = torch.rand((B, 3, H // 4 + 2, W // 4 + 2), generator=g, device=dev)
+    base = torch.nn.functional.interpolate(base, (H + 2, W + 4),
+                                           mode="bilinear")
+    base = base.permute(0, 2, 3, 1)
+    return (base[:, 1:H + 1, 3:W + 3].contiguous(),
+            base[:, :H, :W].contiguous())
+
+
+def _liu_routes():
+    from depth_estimation_tpu_torch.utils.timer import COUNTERS
+    return [COUNTERS[f"liu_graph.{k}"] for k in ("captures", "replays",
+                                                  "eager")]
+
+
+@torch.no_grad()
+def _liu_solve(pair, **kw):
+    from depth_estimation_tpu_torch.flow import celiu
+    return celiu.coarse2fine_flow_batched(*pair, **dict(_LIU, **kw))
+
+
+def _fresh_liu_graphs(monkeypatch):
+    from depth_estimation_tpu_torch.flow import irls_graph
+    monkeypatch.setattr(irls_graph, "GRAPHS", irls_graph.IRLSGraphs())
+    return irls_graph
+
+
+def _eager_liu_solve(monkeypatch, pair, **kw):
+    """The solve with every IRLS step eager (a cache bound of 0)."""
+    from depth_estimation_tpu_torch.flow import irls_graph
+    with monkeypatch.context() as m:
+        m.setattr(irls_graph, "GRAPHS", irls_graph.IRLSGraphs())
+        m.setattr(irls_graph, "MAX_GRAPHS", 0)
+        return _liu_solve(pair, **kw)
+
+
+def test_liu_graph_solve_equals_eager_over_solves(dev, monkeypatch):
+    """A whole solve at 180x320, B=2, the trainer's schedule: graph and
+    eager bit-equal over 3 solves with new contents; a level's capture on
+    the first, 68 replays each solve."""
+    _fresh_liu_graphs(monkeypatch)
+    pairs = [_liu_pair(dev, 2, 180, 320, 40 + s) for s in range(3)]
+    e0 = _liu_routes()[2]
+    wants = [_eager_liu_solve(monkeypatch, p) for p in pairs]
+    assert _liu_routes()[2] == e0 + 3 * 68
+    c0, r0, e0 = _liu_routes()
+    for i, (pair, want) in enumerate(zip(pairs, wants)):
+        got = _liu_solve(pair)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), float((a - b).abs().max())
+        assert _liu_routes() == [c0 + 8, r0 + 68 * (i + 1), e0]
+    assert 0.5 < float(got[0].abs().mean()) < 5.0
+
+
+def test_liu_graph_gmm_bicubic_equals_eager(dev, monkeypatch):
+    """The Gaussian-mixture noise model (its three tensors copied in, the
+    first level's expanded) and bicubic warps, graph against eager."""
+    _fresh_liu_graphs(monkeypatch)
+    kw = dict(alpha=0.01, min_width=30, n_outer=2, noise_model="gmm",
+              interpolation="bicubic")
+    for seed in (50, 51):
+        pair = _liu_pair(dev, 2, 60, 80, seed)
+        want = _eager_liu_solve(monkeypatch, pair, **kw)
+        got = _liu_solve(pair, **kw)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), float((a - b).abs().max())
+    assert _liu_routes()[0] >= 3
+
+
+def test_liu_graph_captures_levels_up_to_its_bound(dev, monkeypatch):
+    """Past the bound a new shape runs eagerly and is counted; the shapes
+    held keep replaying."""
+    irls_graph = _fresh_liu_graphs(monkeypatch)
+    kw = dict(n_outer=2)                # 3 levels at 60x80: 4 + 3 + 2 steps
+    c0, r0, e0 = _liu_routes()
+    _liu_solve(_liu_pair(dev, 2, 60, 80, 60), **kw)
+    assert _liu_routes() == [c0 + 3, r0 + 9, e0]
+    monkeypatch.setattr(irls_graph, "MAX_GRAPHS", 3)
+    pair = _liu_pair(dev, 3, 60, 80, 61)
+    got = _liu_solve(pair, **kw)
+    assert _liu_routes() == [c0 + 3, r0 + 9, e0 + 9]
+    want = _eager_liu_solve(monkeypatch, pair, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    _liu_solve(_liu_pair(dev, 2, 60, 80, 62), **kw)
+    assert _liu_routes() == [c0 + 3, r0 + 18, e0 + 18]  # + the eager want's
+
+
+def test_liu_graph_stays_eager_in_a_capture_and_captures_off_the_profiler(
+        dev, monkeypatch):
+    """Inside a caller's capture the step is eager and captures nothing; a
+    new key under a running profiler is eager too; once captured outside
+    one, it replays under it."""
+    from depth_estimation_tpu_torch.flow import celiu
+    irls_graph = _fresh_liu_graphs(monkeypatch)
+    g = torch.Generator(device=dev).manual_seed(70)
+    tensors = tuple(torch.rand(s, generator=g, device=dev) for s in
+                    ((2, 30, 40, 5), (2, 30, 40, 5), (2, 30, 40), (2, 30, 40),
+                     (2, 5)))
+    kw = dict(alpha=0.005, noise_model="lap")
+    want = celiu._irls_planes(*tensors, **kw)
+    torch.cuda.synchronize()
+    c0, r0, e0 = _liu_routes()
+    outer = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(outer):
+        got = irls_graph.GRAPHS.replay(celiu._irls_planes, tensors, **kw)
+    outer.replay()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert _liu_routes() == [c0, r0, e0 + 1]
+    assert irls_graph.GRAPHS._graphs == {}
+    with torch.profiler.profile():
+        got = irls_graph.GRAPHS.replay(celiu._irls_planes, tensors, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert _liu_routes() == [c0, r0, e0 + 2]
+    irls_graph.GRAPHS.replay(celiu._irls_planes, tensors, **kw)
+    with torch.profiler.profile():
+        got = irls_graph.GRAPHS.replay(celiu._irls_planes, tensors, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert _liu_routes() == [c0 + 1, r0 + 2, e0 + 2]
+
+
+def test_liu_graph_shared_by_threads(dev):
+    """Threads replaying one key on one stream each get their own planes."""
+    import threading
+    from depth_estimation_tpu_torch.flow import celiu, irls_graph
+    graphs = irls_graph.IRLSGraphs()
+    kw = dict(alpha=0.005, noise_model="lap")
+    bad, errors = [], []
+
+    def inputs(seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return tuple(torch.rand(s, generator=g, device=dev) for s in
+                     ((2, 24, 32, 5), (2, 24, 32, 5), (2, 24, 32),
+                      (2, 24, 32), (2, 5)))
+    graphs.replay(celiu._irls_planes, inputs(80), **kw)
+
+    def worker(t):
+        try:
+            for i in range(5):
+                tensors = inputs(100 * t + i)
+                got = graphs.replay(celiu._irls_planes, tensors, **kw)
+                want = celiu._irls_planes(*tensors, **kw)
+                if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                    bad.append((t, i))
+        except Exception as e:          # re-raised below
+            errors.append(e)
+    threads = [threading.Thread(target=worker, args=(t,)) for t in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors
+    assert bad == []
+    assert len(graphs._graphs) == 1     # one device, the default stream
