@@ -14,8 +14,9 @@
     taking frame-1 values.
 
 The first inner IRLS step's planes (``_irls_planes``) replay on the card
-from a CUDA graph captured once per level shape (``flow/irls_graph``), bit
-for bit eager's; a warm start's steps run eagerly.
+from a CUDA graph captured once per level shape (``GRAPHS``, the shared
+``utils/cuda_graph`` cache), bit for bit eager's; a warm start's steps run
+eagerly.
 
 Spans (``utils/timer.SPANS``, ranges only while a profiler runs):
 ``liu.pyramid`` (both pyramids, then each level's ``im2feature``),
@@ -24,7 +25,7 @@ planes and the Laplacian: a graph's replay on the card), ``liu.sor`` (the
 SOR solve), ``liu.warp`` (the flow's upsampling between levels, each outer
 step's update, warp and noise estimate, and the final warp). Counters
 (``utils/timer.COUNTERS``): ``liu.levels`` a level solved,
-``liu.irls_steps`` an outer IRLS step, and ``irls_graph``'s
+``liu.irls_steps`` an outer IRLS step, and ``GRAPHS``'s
 ``liu_graph.captures``, ``.replays``, ``.eager``.
 
 Layout: images are (..., H, W, C) float32 in [0, 1], flow fields (..., H,
@@ -47,10 +48,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.cuda_graph import GraphCache
 from ..utils.device import as_f32
 from ..utils.timer import count, profiled_span
-from . import irls_graph
 from .sor_kernel import sor_redblack
+
+# the IRLS planes' graphs: the 8 levels of the trainer's schedule at the
+# loader's two batch sizes (a full LIU_CHUNK and the last chunk) a device
+GRAPHS = GraphCache("liu_graph", max_graphs=16)
 
 # ---------------------------------------------------------------------------
 # image helpers (clamp-boundary separable filters, bilinear sampling)
@@ -526,8 +531,8 @@ def smooth_flow_sor(im1f, im2f, warp, u, v, lap_para, alpha,
     Returns (u, v, warp, lap_para, gm).
 
     The first inner step's planes (``_irls_planes``) replay from a CUDA
-    graph where the input allows (``irls_graph.GRAPHS``); a warm start's
-    run eagerly. The SOR solve from a zero start (the first inner step, and
+    graph where the input allows (``GRAPHS``); a warm start's run
+    eagerly. The SOR solve from a zero start (the first inner step, and
     every step of the reference's schedules, which use n_inner = 1) goes
     through ``sor_redblack``: kernel B4 for a CUDA tensor, ``sor_plain`` for
     a CPU tensor. A warm start (n_inner > 1) runs ``sor_plain``."""
@@ -539,11 +544,11 @@ def smooth_flow_sor(im1f, im2f, warp, u, v, lap_para, alpha,
             with profiled_span("liu.irls"):
                 tensors = (im1f, warp, u, v, lap_para, *(gm or ()))
                 if hh == 0:
-                    planes = irls_graph.GRAPHS.replay(
+                    planes = GRAPHS.replay(
                         _irls_planes, tensors, alpha=alpha,
                         noise_model=noise_model)
                 else:
-                    planes = irls_graph.run_eager(
+                    planes = GRAPHS.run_eager(
                         _irls_planes, tensors, alpha=alpha,
                         noise_model=noise_model, du=du, dv=dv)
 

@@ -430,12 +430,14 @@ def _eight_point(p1n: torch.Tensor, p2n: torch.Tensor) -> torch.Tensor:
     nullspace of A as the last column of a complete QR of A^T. (Its sign
     depends on the LAPACK build; Sampson scores and the SVD-based
     decomposition do not.) On the card the QR is replayed from a CUDA
-    graph, bit for bit eager's (``qr_graph``)."""
+    graph, bit for bit eager's (``qr_graph.sliced_q`` through the shared
+    ``utils/cuda_graph`` cache)."""
     x1, y1 = p1n[..., 0], p1n[..., 1]
     x2, y2 = p2n[..., 0], p2n[..., 1]
     A = torch.stack([x2 * x1, x2 * y1, x2, y2 * x1, y2 * y1, y2, x1, y1,
                      torch.ones_like(x1)], dim=-1)
-    Q = qr_graph.GRAPHS.complete_q(A)
+    Q = qr_graph.GRAPHS.replay(qr_graph.sliced_q, (A,),
+                               eager_fn=qr_graph.eager_q)
     return Q[..., :, 8].reshape(Q.shape[:-2] + (3, 3))
 
 

@@ -25,14 +25,13 @@ per-layer metric of the benchmark (``h100bench/metrics``), or its
 breakdown of the card's idle time by the span the host was in.
 
 The program's own counters sit beside them in ``COUNTERS``, by name
-(``count``), from every thread: how often RANSAC's QR was captured into a
-CUDA graph, replayed from one, or run eagerly (``qr_graph.captures``,
-``qr_graph.replays``, ``qr_graph.eager``; ``geometry3d/qr_graph``), and
-how many pyramid levels and outer IRLS steps Ce Liu's solve made
-(``liu.levels``, ``liu.irls_steps``; ``flow/celiu``), and how often an
-IRLS step's planes were captured, replayed or run eagerly
-(``liu_graph.captures``, ``liu_graph.replays``, ``liu_graph.eager``;
-``flow/irls_graph``).
+(``count``), from every thread: how many pyramid levels and outer IRLS
+steps Ce Liu's solve made (``liu.levels``, ``liu.irls_steps``;
+``flow/celiu``), and how often each cache of ``utils/cuda_graph``
+captured a call into a CUDA graph, replayed one, or ran the call eagerly
+(``<name>.captures``, ``<name>.replays``, ``<name>.eager``): RANSAC's QR
+as ``qr_graph`` (``geometry3d/qr_graph``) and an IRLS step's planes as
+``liu_graph`` (``flow/celiu``).
 """
 
 from __future__ import annotations

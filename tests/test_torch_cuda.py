@@ -27,16 +27,15 @@ flow-forward artifact launches B1 once a call and equals the live
 forward. The peak meter's P1 (FMA and exp chains) and P2 (1 to 8
 logistic chains, at full occupancy and at 4 warps an SM) equal their twins
 at sizes below, at and beyond one value a thread of the card.
-RANSAC's complete QR replayed from CUDA graphs equals eager
-``torch.linalg.qr`` bit for bit at the online program's shape, at B=1,
-S=64 and at an odd B, over replays with new contents, per shape up to the
-cache's bound and eagerly past it, in 32 slices as in one chain, from
-threads sharing the cache, and stays eager inside a caller's capture.
-The liu solve's IRLS planes replayed from CUDA graphs equal eager's bit
-for bit over whole solves (180x320, B=2, the trainer's schedule: a
-capture a level, 68 replays a solve; gmm with bicubic warps), run eagerly
-and counted past the cache's bound, inside a caller's capture and for a
-new key under a profiler, and serve threads sharing the cache.
+The shared CUDA-graph cache's two users, RANSAC's complete QR and the liu
+solve's IRLS planes, replay eager's bits and layout over replays with new
+contents (the QR at the online program's shape, at B=1, S=64 and at an odd
+B), capture each shape up to the process cache's bound and run eagerly
+past it, serve threads sharing a cache, and stay eager inside a caller's
+capture and for a new key under a profiler. The QR in 32 slices equals it
+in one chain; the IRLS planes equal eager's over whole solves (180x320,
+B=2, the trainer's schedule: a capture a level, 68 replays a solve; gmm
+with bicubic warps).
 Every test skips without a CUDA card. This file imports no jax, so it also runs where
 jax is absent:
 
@@ -718,11 +717,11 @@ def test_liu_ground_truth_of_a_pair_launches_b4(dev):
 def test_liu_flow_batched_at_the_cells_shapes_equals_the_reference(dev):
     """One batched liu solve at the benchmark cell's shapes (B=64, 180x320,
     the trainer's schedule: 8 levels, 68 IRLS steps) launches B4 once an
-    IRLS step and equals the plain reference (``torch_reference/liu.py``)
-    on the card bit for bit."""
+    IRLS step and equals the plain reference
+    (``h100bench/reference/liu.py``) on the card bit for bit."""
     from depth_estimation_tpu_torch.data import groundtruth
     from depth_estimation_tpu_torch.flow import sor_kernel
-    from torch_reference import liu as ref
+    from h100bench.reference import liu as ref
     g = torch.Generator(device=dev).manual_seed(20)
     base = torch.rand((64, 3, 47, 82), generator=g, device=dev)
     base = torch.nn.functional.interpolate(base, (182, 324), mode="bilinear")
@@ -932,8 +931,13 @@ def test_estimator_auto_equals_a_fixed_block_on_the_card(dev, tmp_path,
 
 
 # ---------------------------------------------------------------------------
-# RANSAC's QR replayed from CUDA graphs (geometry3d/qr_graph): eager's bits
+# The shared CUDA-graph cache (utils/cuda_graph) and its two users, RANSAC's
+# QR (geometry3d/qr_graph) and the liu solve's IRLS planes (flow/celiu):
+# eager's bits
 # ---------------------------------------------------------------------------
+
+GRAPH_USERS = ["qr_graph", "liu_graph"]
+
 
 def _qr_input(dev, B, S, seed):
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -945,69 +949,100 @@ def _qr_input(dev, B, S, seed):
     return p1, p2, A
 
 
-def _qr_routes():
+def _planes_input(dev, B, H, W, seed):
+    """An IRLS step's (im1f, warp, u, v, lap_para), 5 channels."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(torch.rand(s, generator=g, device=dev) for s in
+                 ((B, H, W, 5), (B, H, W, 5), (B, H, W), (B, H, W), (B, 5)))
+
+
+def _graph_user(name):
+    """One user of the shared cache: (its call through a cache, its eager
+    call, its inputs at (size, seed), the process's cache)."""
+    from depth_estimation_tpu_torch.flow import celiu
+    from depth_estimation_tpu_torch.geometry3d import qr_graph
+    if name == "qr_graph":
+        return (lambda cache, ts: cache.replay(qr_graph.sliced_q, ts,
+                                               eager_fn=qr_graph.eager_q),
+                lambda ts: qr_graph.eager_q(*ts),
+                lambda dev, size, seed: (_qr_input(dev, *size, seed)[2],),
+                qr_graph.GRAPHS)
+    kw = dict(alpha=0.005, noise_model="lap")
+    return (lambda cache, ts: cache.replay(celiu._irls_planes, ts, **kw),
+            lambda ts: celiu._irls_planes(*ts, **kw),
+            lambda dev, size, seed: _planes_input(dev, *size, seed),
+            celiu.GRAPHS)
+
+
+def _graph_routes(name):
     from depth_estimation_tpu_torch.utils.timer import COUNTERS
-    return [COUNTERS[f"qr_graph.{k}"] for k in ("captures", "replays",
-                                                 "eager")]
+    return [COUNTERS[f"{name}.{k}"] for k in ("captures", "replays",
+                                               "eager")]
 
 
-@pytest.mark.parametrize("B,S", [(128, 48), (1, 64), (3, 48)])
-def test_qr_graph_equals_eager_over_replays(dev, B, S):
-    from depth_estimation_tpu_torch.geometry3d import egomotion, qr_graph
-    graphs = qr_graph.QRGraphs()
-    c0, r0, e0 = _qr_routes()
+def _same(got, want):
+    """Bit for bit, in eager's layout."""
+    from torch.utils import _pytree
+    got, want = _pytree.tree_leaves(got), _pytree.tree_leaves(want)
+    return len(got) == len(want) and all(
+        torch.equal(a, b) and a.stride() == b.stride()
+        for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("user,size", [
+    ("qr_graph", (128, 48)), ("qr_graph", (1, 64)), ("qr_graph", (3, 48)),
+    ("liu_graph", (2, 180, 320)), ("liu_graph", (1, 7, 9))])
+def test_graph_equals_eager_over_replays(dev, user, size):
+    from depth_estimation_tpu_torch.utils.cuda_graph import GraphCache
+    call, eager, inputs, _ = _graph_user(user)
+    cache = GraphCache(user, 4)
+    c0, r0, e0 = _graph_routes(user)
     for seed in range(4):               # new contents each replay
-        p1, p2, A = _qr_input(dev, B, S, seed)
-        want = qr_graph.eager_q(A)
-        got = graphs.complete_q(A)
-        assert torch.equal(got, want) and got.stride() == want.stride()
-        E = got[..., :, 8].reshape(B, S, 3, 3)
-        assert torch.equal(E, want[..., :, 8].reshape(B, S, 3, 3))
-    assert _qr_routes() == [c0 + 1, r0 + 4, e0]
-    # the program's own path, through the process's cache
-    E = egomotion._eight_point(p1, p2)
-    assert torch.equal(E, want[..., :, 8].reshape(B, S, 3, 3))
+        tensors = inputs(dev, size, seed)
+        assert _same(call(cache, tensors), eager(tensors))
+    assert _graph_routes(user) == [c0 + 1, r0 + 4, e0]
+    if user == "qr_graph":              # the program's own path
+        from depth_estimation_tpu_torch.geometry3d import egomotion
+        p1, p2, _ = _qr_input(dev, *size, 3)
+        want = eager(tensors)[..., :, 8].reshape(size + (3, 3))
+        assert torch.equal(egomotion._eight_point(p1, p2), want)
 
 
-def test_qr_graph_captures_each_shape_up_to_its_bound(dev):
-    from depth_estimation_tpu_torch.geometry3d import qr_graph
-    graphs = qr_graph.QRGraphs()
-    c0, r0, e0 = _qr_routes()
-    batches = range(2, 3 + qr_graph.MAX_SHAPES)
+@pytest.mark.parametrize("user", GRAPH_USERS)
+def test_graph_captures_up_to_its_bound(dev, user):
+    """Each size up to the process cache's bound captured once and replayed
+    twice; the last past the bound, eager."""
+    from depth_estimation_tpu_torch.utils.cuda_graph import GraphCache
+    call, eager, inputs, process = _graph_user(user)
+    n = process.max_graphs
+    cache = GraphCache(user, n)
+    sizes = [(B, 48) if user == "qr_graph" else (B, 12, 16)
+             for B in range(2, 3 + n)]
+    c0, r0, e0 = _graph_routes(user)
     for seed in range(2):
-        for B in batches:
-            _, _, A = _qr_input(dev, B, 48, 10 * seed + B)
-            assert torch.equal(graphs.complete_q(A), qr_graph.eager_q(A))
-    # each shape up to the bound captured once and replayed twice; the
-    # last past the bound, eager
-    n = qr_graph.MAX_SHAPES
-    assert _qr_routes() == [c0 + n, r0 + 2 * n, e0 + 2]
+        for i, size in enumerate(sizes):
+            tensors = inputs(dev, size, 10 * seed + i)
+            assert _same(call(cache, tensors), eager(tensors))
+    assert _graph_routes(user) == [c0 + n, r0 + 2 * n, e0 + 2]
 
 
-def test_qr_graph_slices_give_the_bits_of_one_chain(dev):
-    from depth_estimation_tpu_torch.geometry3d import qr_graph
-    _, _, A = _qr_input(dev, 128, 48, 7)
-    k = qr_graph.slices(128 * 48)
-    assert k == qr_graph.MAX_SLICES
-    one, sliced = qr_graph._Graph(A, 1), qr_graph._Graph(A, k)
-    for seed in (8, 9):
-        _, _, A = _qr_input(dev, 128, 48, seed)
-        want = qr_graph.eager_q(A)
-        assert torch.equal(one(A), want) and torch.equal(sliced(A), want)
-
-
-def test_qr_graph_shared_by_threads(dev):
+@pytest.mark.parametrize("user", GRAPH_USERS)
+def test_graph_shared_by_threads(dev, user):
+    """Threads replaying one key on one stream each get their own
+    outputs."""
     import threading
-    from depth_estimation_tpu_torch.geometry3d import qr_graph
-    graphs = qr_graph.QRGraphs()
-    qr_graph.eager_q(_qr_input(dev, 8, 48, 0)[2])  # torch's linalg loaded
+    from depth_estimation_tpu_torch.utils.cuda_graph import GraphCache
+    call, eager, inputs, _ = _graph_user(user)
+    size = (8, 48) if user == "qr_graph" else (2, 24, 32)
+    cache = GraphCache(user, 4)
+    call(cache, inputs(dev, size, 0))
     bad, errors = [], []
 
     def worker(t):
         try:
             for i in range(5):
-                _, _, A = _qr_input(dev, 8, 48, 100 * t + i)
-                if not torch.equal(graphs.complete_q(A), qr_graph.eager_q(A)):
+                tensors = inputs(dev, size, 100 * t + i)
+                if not _same(call(cache, tensors), eager(tensors)):
                     bad.append((t, i))
         except Exception as e:          # re-raised below
             errors.append(e)
@@ -1019,28 +1054,52 @@ def test_qr_graph_shared_by_threads(dev):
     assert not any(t.is_alive() for t in threads)
     assert not errors, errors
     assert bad == []
-    assert len(graphs._graphs) == 1     # one device, the default stream
+    assert len(cache._graphs) == 1      # one device, the default stream
 
 
-def test_qr_graph_stays_eager_inside_a_callers_capture(dev):
-    from depth_estimation_tpu_torch.geometry3d import qr_graph
-    graphs = qr_graph.QRGraphs()
-    _, _, A = _qr_input(dev, 2, 48, 3)
-    want = qr_graph.eager_q(A)
+@pytest.mark.parametrize("user", GRAPH_USERS)
+def test_graph_stays_eager_in_a_capture_and_captures_off_the_profiler(
+        dev, user):
+    """Inside a caller's capture the call is eager and captures nothing; a
+    new key under a running profiler is eager too; once captured outside
+    one, it replays under it."""
+    from depth_estimation_tpu_torch.utils.cuda_graph import GraphCache
+    call, eager, inputs, _ = _graph_user(user)
+    cache = GraphCache(user, 4)
+    tensors = inputs(dev, (2, 48) if user == "qr_graph" else (2, 30, 40), 3)
+    want = eager(tensors)
     torch.cuda.synchronize()
-    c0, r0, e0 = _qr_routes()
+    c0, r0, e0 = _graph_routes(user)
     outer = torch.cuda.CUDAGraph()
     with torch.cuda.graph(outer):
-        Q = graphs.complete_q(A)
+        got = call(cache, tensors)
     outer.replay()
-    assert torch.equal(Q, want)
-    assert _qr_routes() == [c0, r0, e0 + 1] and graphs._graphs == {}
+    assert _same(got, want)
+    assert _graph_routes(user) == [c0, r0, e0 + 1] and cache._graphs == {}
+    with torch.profiler.profile():
+        got = call(cache, tensors)
+    assert _same(got, want)
+    assert _graph_routes(user) == [c0, r0, e0 + 2] and cache._graphs == {}
+    call(cache, tensors)
+    with torch.profiler.profile():
+        got = call(cache, tensors)
+    assert _same(got, want)
+    assert _graph_routes(user) == [c0 + 1, r0 + 2, e0 + 2]
 
 
-# ---------------------------------------------------------------------------
-# The liu solve's IRLS planes replayed from CUDA graphs (flow/irls_graph):
-# eager's bits
-# ---------------------------------------------------------------------------
+def test_qr_graph_slices_give_the_bits_of_one_chain(dev, monkeypatch):
+    from depth_estimation_tpu_torch.geometry3d import qr_graph
+    from depth_estimation_tpu_torch.utils.cuda_graph import _Graph
+    _, _, A = _qr_input(dev, 128, 48, 7)
+    assert qr_graph.slices(128 * 48) == qr_graph.MAX_SLICES == 32
+    sliced = _Graph(qr_graph.sliced_q, (A,))
+    monkeypatch.setattr(qr_graph, "MAX_SLICES", 1)
+    one = _Graph(qr_graph.sliced_q, (A,))
+    for seed in (8, 9):
+        _, _, A = _qr_input(dev, 128, 48, seed)
+        want = qr_graph.eager_q(A)
+        assert torch.equal(one((A,)), want) and torch.equal(sliced((A,)), want)
+
 
 # the trainer's 'liu' schedule: 8 levels and 68 IRLS steps at 180x320
 _LIU = dict(alpha=0.005, ratio=0.75, min_width=30, n_outer=5, n_inner=1,
@@ -1058,10 +1117,10 @@ def _liu_pair(dev, B, H, W, seed):
             base[:, :H, :W].contiguous())
 
 
-def _liu_routes():
-    from depth_estimation_tpu_torch.utils.timer import COUNTERS
-    return [COUNTERS[f"liu_graph.{k}"] for k in ("captures", "replays",
-                                                  "eager")]
+def _fresh_liu_graphs(monkeypatch):
+    from depth_estimation_tpu_torch.flow import celiu
+    from depth_estimation_tpu_torch.utils.cuda_graph import GraphCache
+    monkeypatch.setattr(celiu, "GRAPHS", GraphCache("liu_graph", 16))
 
 
 @torch.no_grad()
@@ -1070,36 +1129,30 @@ def _liu_solve(pair, **kw):
     return celiu.coarse2fine_flow_batched(*pair, **dict(_LIU, **kw))
 
 
-def _fresh_liu_graphs(monkeypatch):
-    from depth_estimation_tpu_torch.flow import irls_graph
-    monkeypatch.setattr(irls_graph, "GRAPHS", irls_graph.IRLSGraphs())
-    return irls_graph
-
-
 def _eager_liu_solve(monkeypatch, pair, **kw):
     """The solve with every IRLS step eager (a cache bound of 0)."""
-    from depth_estimation_tpu_torch.flow import irls_graph
+    from depth_estimation_tpu_torch.flow import celiu
+    from depth_estimation_tpu_torch.utils.cuda_graph import GraphCache
     with monkeypatch.context() as m:
-        m.setattr(irls_graph, "GRAPHS", irls_graph.IRLSGraphs())
-        m.setattr(irls_graph, "MAX_GRAPHS", 0)
+        m.setattr(celiu, "GRAPHS", GraphCache("liu_graph", 0))
         return _liu_solve(pair, **kw)
 
 
 def test_liu_graph_solve_equals_eager_over_solves(dev, monkeypatch):
-    """A whole solve at 180x320, B=2, the trainer's schedule: graph and
+    """Whole solves at 180x320, B=2, the trainer's schedule: graph and
     eager bit-equal over 3 solves with new contents; a level's capture on
     the first, 68 replays each solve."""
     _fresh_liu_graphs(monkeypatch)
     pairs = [_liu_pair(dev, 2, 180, 320, 40 + s) for s in range(3)]
-    e0 = _liu_routes()[2]
+    e0 = _graph_routes("liu_graph")[2]
     wants = [_eager_liu_solve(monkeypatch, p) for p in pairs]
-    assert _liu_routes()[2] == e0 + 3 * 68
-    c0, r0, e0 = _liu_routes()
+    assert _graph_routes("liu_graph")[2] == e0 + 3 * 68
+    c0, r0, e0 = _graph_routes("liu_graph")
     for i, (pair, want) in enumerate(zip(pairs, wants)):
         got = _liu_solve(pair)
         for a, b in zip(got, want):
             assert torch.equal(a, b), float((a - b).abs().max())
-        assert _liu_routes() == [c0 + 8, r0 + 68 * (i + 1), e0]
+        assert _graph_routes("liu_graph") == [c0 + 8, r0 + 68 * (i + 1), e0]
     assert 0.5 < float(got[0].abs().mean()) < 5.0
 
 
@@ -1109,97 +1162,11 @@ def test_liu_graph_gmm_bicubic_equals_eager(dev, monkeypatch):
     _fresh_liu_graphs(monkeypatch)
     kw = dict(alpha=0.01, min_width=30, n_outer=2, noise_model="gmm",
               interpolation="bicubic")
+    c0 = _graph_routes("liu_graph")[0]
     for seed in (50, 51):
         pair = _liu_pair(dev, 2, 60, 80, seed)
         want = _eager_liu_solve(monkeypatch, pair, **kw)
         got = _liu_solve(pair, **kw)
         for a, b in zip(got, want):
             assert torch.equal(a, b), float((a - b).abs().max())
-    assert _liu_routes()[0] >= 3
-
-
-def test_liu_graph_captures_levels_up_to_its_bound(dev, monkeypatch):
-    """Past the bound a new shape runs eagerly and is counted; the shapes
-    held keep replaying."""
-    irls_graph = _fresh_liu_graphs(monkeypatch)
-    kw = dict(n_outer=2)                # 3 levels at 60x80: 4 + 3 + 2 steps
-    c0, r0, e0 = _liu_routes()
-    _liu_solve(_liu_pair(dev, 2, 60, 80, 60), **kw)
-    assert _liu_routes() == [c0 + 3, r0 + 9, e0]
-    monkeypatch.setattr(irls_graph, "MAX_GRAPHS", 3)
-    pair = _liu_pair(dev, 3, 60, 80, 61)
-    got = _liu_solve(pair, **kw)
-    assert _liu_routes() == [c0 + 3, r0 + 9, e0 + 9]
-    want = _eager_liu_solve(monkeypatch, pair, **kw)
-    assert all(torch.equal(a, b) for a, b in zip(got, want))
-    _liu_solve(_liu_pair(dev, 2, 60, 80, 62), **kw)
-    assert _liu_routes() == [c0 + 3, r0 + 18, e0 + 18]  # + the eager want's
-
-
-def test_liu_graph_stays_eager_in_a_capture_and_captures_off_the_profiler(
-        dev, monkeypatch):
-    """Inside a caller's capture the step is eager and captures nothing; a
-    new key under a running profiler is eager too; once captured outside
-    one, it replays under it."""
-    from depth_estimation_tpu_torch.flow import celiu
-    irls_graph = _fresh_liu_graphs(monkeypatch)
-    g = torch.Generator(device=dev).manual_seed(70)
-    tensors = tuple(torch.rand(s, generator=g, device=dev) for s in
-                    ((2, 30, 40, 5), (2, 30, 40, 5), (2, 30, 40), (2, 30, 40),
-                     (2, 5)))
-    kw = dict(alpha=0.005, noise_model="lap")
-    want = celiu._irls_planes(*tensors, **kw)
-    torch.cuda.synchronize()
-    c0, r0, e0 = _liu_routes()
-    outer = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(outer):
-        got = irls_graph.GRAPHS.replay(celiu._irls_planes, tensors, **kw)
-    outer.replay()
-    assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert _liu_routes() == [c0, r0, e0 + 1]
-    assert irls_graph.GRAPHS._graphs == {}
-    with torch.profiler.profile():
-        got = irls_graph.GRAPHS.replay(celiu._irls_planes, tensors, **kw)
-    assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert _liu_routes() == [c0, r0, e0 + 2]
-    irls_graph.GRAPHS.replay(celiu._irls_planes, tensors, **kw)
-    with torch.profiler.profile():
-        got = irls_graph.GRAPHS.replay(celiu._irls_planes, tensors, **kw)
-    assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert _liu_routes() == [c0 + 1, r0 + 2, e0 + 2]
-
-
-def test_liu_graph_shared_by_threads(dev):
-    """Threads replaying one key on one stream each get their own planes."""
-    import threading
-    from depth_estimation_tpu_torch.flow import celiu, irls_graph
-    graphs = irls_graph.IRLSGraphs()
-    kw = dict(alpha=0.005, noise_model="lap")
-    bad, errors = [], []
-
-    def inputs(seed):
-        g = torch.Generator(device=dev).manual_seed(seed)
-        return tuple(torch.rand(s, generator=g, device=dev) for s in
-                     ((2, 24, 32, 5), (2, 24, 32, 5), (2, 24, 32),
-                      (2, 24, 32), (2, 5)))
-    graphs.replay(celiu._irls_planes, inputs(80), **kw)
-
-    def worker(t):
-        try:
-            for i in range(5):
-                tensors = inputs(100 * t + i)
-                got = graphs.replay(celiu._irls_planes, tensors, **kw)
-                want = celiu._irls_planes(*tensors, **kw)
-                if not all(torch.equal(a, b) for a, b in zip(got, want)):
-                    bad.append((t, i))
-        except Exception as e:          # re-raised below
-            errors.append(e)
-    threads = [threading.Thread(target=worker, args=(t,)) for t in range(4)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(timeout=120)
-    assert not any(t.is_alive() for t in threads)
-    assert not errors, errors
-    assert bad == []
-    assert len(graphs._graphs) == 1     # one device, the default stream
+    assert _graph_routes("liu_graph")[0] >= c0 + 3

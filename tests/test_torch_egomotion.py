@@ -168,81 +168,6 @@ def test_gumbel_noise_is_seeded_and_shaped():
     assert abs(big.mean().item() - 0.5772) < 0.02
 
 
-# ---------------------------------------------------------------------------
-# RANSAC's QR: the CUDA-graph route and where it stays eager
-# (geometry3d/qr_graph; its card cases are in test_torch_cuda.py)
-# ---------------------------------------------------------------------------
-
-def _samples(B, S, seed=0):
-    rng = np.random.RandomState(seed)
-    p1 = torch.from_numpy(0.4 * rng.randn(B, S, 8, 2).astype(np.float32))
-    p2 = p1 + torch.from_numpy(0.02 * rng.randn(B, S, 8, 2).astype(np.float32))
-    return p1, p2
-
-
-def _eight_point_as_written(p1n, p2n):
-    """``_eight_point`` before the graph route: the plain complete QR."""
-    x1, y1 = p1n[..., 0], p1n[..., 1]
-    x2, y2 = p2n[..., 0], p2n[..., 1]
-    A = torch.stack([x2 * x1, x2 * y1, x2, y2 * x1, y2 * y1, y2, x1, y1,
-                     torch.ones_like(x1)], dim=-1)
-    Q, _ = torch.linalg.qr(A.transpose(-1, -2), mode="complete")
-    return Q[..., :, 8].reshape(Q.shape[:-2] + (3, 3))
-
-
-def _routes():
-    from depth_estimation_tpu_torch.utils.timer import COUNTERS
-    return {k: COUNTERS[f"qr_graph.{k}"]
-            for k in ("captures", "replays", "eager")}
-
-
-@pytest.mark.parametrize("route", ["cpu", "autograd", "dispatch mode",
-                                   "compiling"])
-def test_eight_point_qr_stays_eager_off_the_graph_route(route, monkeypatch):
-    from depth_estimation_tpu_torch.geometry3d import qr_graph
-    from depth_estimation_tpu_torch.utils.debug import nan_debug
-    p1, p2 = _samples(3, 5)
-    want = _eight_point_as_written(p1, p2)
-    if route == "autograd":
-        p1.requires_grad_(True)
-    if route == "compiling":
-        monkeypatch.setattr(torch.compiler, "is_compiling", lambda: True)
-    A = torch.zeros(2, 8, 9, requires_grad=route == "autograd")
-    before = _routes()
-    if route == "dispatch mode":
-        with nan_debug():
-            assert qr_graph.eager_reason(A) == route
-            got = tego._eight_point(p1, p2)
-    else:
-        assert qr_graph.eager_reason(A) == route
-        got = tego._eight_point(p1, p2)
-    assert torch.equal(got.detach(), want)
-    counted = 0 if route == "compiling" else 1      # a trace runs nothing
-    assert _routes() == dict(before, eager=before["eager"] + counted)
-
-
-def test_eight_point_exports_the_plain_qr():
-    class Fit(torch.nn.Module):
-        def forward(self, p1, p2):
-            return tego._eight_point(p1, p2)
-    p1, p2 = _samples(2, 4, seed=1)
-    before = _routes()
-    ep = torch.export.export(Fit(), (p1, p2))
-    targets = {str(n.target) for n in ep.graph.nodes if n.op == "call_function"}
-    assert any("linalg_qr" in t for t in targets), targets
-    assert torch.equal(ep.module()(p1, p2), _eight_point_as_written(p1, p2))
-    assert _routes() == before
-
-
-def test_qr_graph_slices_keep_two_matrices():
-    from depth_estimation_tpu_torch.geometry3d import qr_graph
-    for n in range(1, 9000):
-        k = qr_graph.slices(n)
-        assert 1 <= k <= qr_graph.MAX_SLICES
-        assert k == 1 or n // k >= 2    # cuBLAS's batched geqrf in each
-        assert k == min(qr_graph.MAX_SLICES, max(1, n // 2))
-
-
 def test_program_counters_lose_no_count_across_threads():
     import sys
     import threading

@@ -1,9 +1,9 @@
 """The port's batched liu ground truth (``data/groundtruth.liu_flow_batched``,
-Ce Liu's solve with the trainer's parameters) against the plain reference
-``torch_reference/liu.py`` and the per-pair ``liu_flow``, on the CPU (B4's
-plain twin in the SOR): the counters of the solve, the reference's
-independence and its frozen copy in the benchmark, the solve's spans, and
-the one-device dataset loader solving its cache misses in batched chunks.
+Ce Liu's solve with the trainer's parameters) against the benchmark's plain
+reference ``h100bench/reference/liu.py`` and the per-pair ``liu_flow``, on
+the CPU (B4's plain twin in the SOR): the counters of the solve, the
+reference's independence, the solve's spans, and the one-device dataset
+loader solving its cache misses in batched chunks.
 
 Inputs are smooth seeded textures (white noise is ill-conditioned for the
 solver, ``test_torch_celiu.py``) at 48x64 with min_width 25: 3 levels,
@@ -23,7 +23,7 @@ from depth_estimation_tpu_torch.data import datasets, groundtruth
 from depth_estimation_tpu_torch.geometry import Geometry
 from depth_estimation_tpu_torch.geometry3d import calibration
 from depth_estimation_tpu_torch.utils import timer
-from torch_reference import liu as ref
+from h100bench.reference import liu as ref
 
 ROOT = Path(__file__).resolve().parent.parent
 KW = dict(alpha=0.005, ratio=0.75, min_width=25, n_outer=5, n_inner=1,
@@ -103,13 +103,13 @@ def _imports(path):
             yield node.module.split(".")[0]
 
 
-@pytest.mark.parametrize("path", ["torch_reference/liu.py",
-                                  "h100bench/reference/liu.py"])
+@pytest.mark.parametrize("path", ["h100bench/reference/liu.py"])
 def test_reference_imports_neither_package_nor_jax(path):
     tops = set(_imports(ROOT / path))
     assert tops <= {"__future__", "contextlib", "math", "typing", "numpy",
                     "torch"}, tops
-    code = ("import sys; sys.path.insert(0, '.'); import torch_reference.liu;"
+    module = path.removesuffix(".py").replace("/", ".")
+    code = (f"import sys; sys.path.insert(0, '.'); import {module};"
             "print(sorted({m.split('.')[0] for m in sys.modules} & "
             "{'jax', 'jaxlib', 'flax', 'depth_estimation_tpu', "
             "'depth_estimation_tpu_torch'}))")
@@ -117,11 +117,6 @@ def test_reference_imports_neither_package_nor_jax(path):
                        capture_output=True, text=True, timeout=120)
     assert p.returncode == 0, p.stderr[-2000:]
     assert p.stdout.strip() == "[]"
-
-
-def test_benchmark_holds_a_frozen_copy():
-    assert ((ROOT / "h100bench/reference/liu.py").read_text()
-            == (ROOT / "torch_reference/liu.py").read_text())
 
 
 def test_liu_spans_are_declared_with_their_readers():
