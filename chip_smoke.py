@@ -29,8 +29,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      RANSAC noise, end to end and ego-motion stage by stage;
   6. the flow ground truth at full size: the 'liu' solver batched at
      BASELINE config2 (B=8, 192x256x3, alpha 0.005, ratio 0.75, min_width
-     30, 5/1/40) on frames whose scene moves 2 px, with B4's launches read
-     around it; one pair card vs CPU; the exhaustive GT at car_model's
+     30, 5/1/40) on frames whose scene moves 2 px, with B4's and the liu
+     warp kernel's launches read around it; one pair card vs CPU; the exhaustive GT at car_model's
      geometry (180x320, 16x16 GT window and kernel), 2 pairs card vs CPU;
   7. the matching core (bench.py's secondary program): uint8 640x480
      frames, B=128 -> 320x180 -> trunk -> crop -> B2 in bf16 -> the depth
@@ -55,7 +55,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      launch's device time from torch.profiler, by level, beside the
      dependency floor (one half-sweep's cluster barrier and boundary-row
      exchange, measured by a no-arithmetic probe, times the level's
-     dependent half-sweeps); B2 (bf16, f32) and B5 through their wrappers
+     dependent half-sweeps); the liu warp kernel (update, warp, noise)
+     and its resize at the liu cell's finest shape (B=64, 180x320, C=5;
+     the pyramid's first step) beside their twins and their bytes bound,
+     one call and 10 back to back; B2 (bf16, f32) and B5 through their wrappers
      on the plan's pixel blocking and on every other compiled blocking,
      and their issue floor (SASS instructions a cell of the plan's
      instantiation, read with cuobjdump, over the card's issue rate);
@@ -134,7 +137,7 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      power draw under each of its rows); the `peaks` JSON line; then the
      roofline
      (benchmarks/speed_of_light: B1 bf16 and f32, B2, B5, B3 f32 and
-     bf16, B4, the celiu packed-tap warp and the conv trunk, each 10 calls
+     bf16, B4, the liu warp kernel and the conv trunk, each 10 calls
      back to back at its main path's shapes, against the measured and the
      published peaks), the `roofline` JSON line, and the contract
      (speed_of_light.contract_failures): every ceiling and every rate of
@@ -221,8 +224,8 @@ import torch
 from depth_estimation_tpu_torch.benchmarks.device_peaks import (
     card_line, sm_clock_under)
 from depth_estimation_tpu_torch.benchmarks.speed_of_light import (
-    CLOCK_HZ, PEAK_BYTES, PEAK_SFU, bound_ms, matcher_bound, sor_planes,
-    sor_work, warp_work)
+    CLOCK_HZ, PEAK_BYTES, PEAK_SFU, bound_ms, liu_warp_inputs, liu_warp_work,
+    matcher_bound, resize_work, sor_planes, sor_work, warp_work)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CAR_MODEL = os.path.join(ROOT, "examples", "car_model")
@@ -271,6 +274,12 @@ GT_SCHEDULE = dict(alpha=0.005, ratio=0.75, min_width=30, n_outer=5,
                    n_inner=1, n_sor=40)
 GT_B, GT_H, GT_W, GT_SHIFT = 8, 192, 256, 2
 GT_SOR_CALLS = 56          # 7 levels, n_outer + k IRLS steps at level k
+GT_WARPS = 56 + 6 + 1      # an IRLS step's, one between levels, the final
+GT_RESIZES = 4 * 6         # two pyramid levels and two flows a level
+# the liu cell's finest level (BASELINE config2 at the working size) and
+# its pyramid's first step
+LIU_B, LIU_H, LIU_W, LIU_C, LIU_NEXT = 64, 180, 320, 5, (135, 240)
+TOL_LIU_NOISE_REL = 1e-5   # the noise sums add in another order
 # the other model families at BASELINE widths (benchmarks/bench_configs.py
 # :136-174): config3's multiscale pyramid and config4's radial net, random
 # weights from a seed (the repo holds no trained checkpoint of either)
@@ -398,6 +407,7 @@ def phase_kernels(dev, report):
     from depth_estimation_tpu_torch.geometry3d.calibration import ARDRONE
     from depth_estimation_tpu_torch.ops import matching, warp
     gen = torch.Generator(device=dev).manual_seed(0)
+    liu_err = liu_warp_check(gen, dev)
     f1 = 0.5 * torch.randn(B_CHECK, 150, 290, 10, generator=gen, device=dev)
     f2 = 0.5 * torch.randn(B_CHECK, 165, 305, 10, generator=gen, device=dev)
     b1_err = 0.0
@@ -494,9 +504,38 @@ def phase_kernels(dev, report):
     check(max(errs5[:2]) <= TOL_FLOW_PX and errs5[2] <= TOL_PROB,
           f"B5 ey/ex/pmax error {errs5}")
     errs = dict(match_fused=b1_err, warp_banded=b3_err, sor_redblack=b4_err,
-                match_fast=b2_err, match_throughput=max(errs5))
+                match_fast=b2_err, match_throughput=max(errs5),
+                liu_warp=liu_err)
     report["kernel_vs_plain"] = errs
     return errs
+
+
+def liu_warp_check(gen, dev):
+    """The liu warp kernel (update, warp, noise) against its twin at the
+    liu cell's finest shape, and its resize at the pyramid's first step:
+    the flow, the warp and the resize bit for bit, the noise within
+    TOL_LIU_NOISE_REL. Returns the largest absolute error (0)."""
+    from depth_estimation_tpu_torch.benchmarks.speed_of_light import (
+        liu_warp_inputs)
+    from depth_estimation_tpu_torch.flow import liu_warp
+    ins = liu_warp_inputs(gen, LIU_B, LIU_H, LIU_W, LIU_C, dev)
+    got = liu_warp.warp_update_noise(*ins, noise=True)
+    ref = liu_warp.warp_update_noise_plain(*ins, noise=True)
+    img = ins[1][..., :3].contiguous()
+    rgot = liu_warp.resize(img, *LIU_NEXT)
+    rref = liu_warp.resize_plain(img, *LIU_NEXT)
+    torch.cuda.synchronize()
+    err = max((a - b).abs().max().item()
+              for a, b in zip((*got[:3], rgot), (*ref[:3], rref)))
+    noise = ((got[3] - ref[3]).abs() / ref[3].abs()).max().item()
+    outside = (got[2] == ins[0]).all(-1).float().mean().item()
+    print(f"liu warp B={LIU_B} {LIU_H}x{LIU_W}x{LIU_C}: max err u, v, warp, "
+          f"resize to {LIU_NEXT[0]}x{LIU_NEXT[1]}x3 {err:.2e}; noise relative "
+          f"err {noise:.2e} ({100 * outside:.2f}% of pixels frame 1's)",
+          flush=True)
+    check(err == 0.0, f"liu warp kernel not bit for bit: {err}")
+    check(noise <= TOL_LIU_NOISE_REL, f"liu warp noise error {noise}")
+    return err
 
 
 # shapes beyond the main paths' (ROADMAP C24), each at small B against the
@@ -792,10 +831,14 @@ def phase_gt(dev, geom, report):
     from depth_estimation_tpu_torch.flow import celiu, sor_kernel
     gen = torch.Generator(device=dev).manual_seed(3)
     im1, im2 = shifted_textures(gen, GT_B, GT_H, GT_W, GT_SHIFT, dev)
+    from depth_estimation_tpu_torch.flow import liu_warp
     sor_kernel.sor_redblack.launches = 0
+    liu_warp.warp_update_noise.launches = liu_warp.resize.launches = 0
     u, v, warped = celiu.coarse2fine_flow_batched(im1, im2, **GT_SCHEDULE)
     torch.cuda.synchronize()
     launches = sor_kernel.sor_redblack.launches
+    warps, resizes = (liu_warp.warp_update_noise.launches,
+                      liu_warp.resize.launches)
     check(tuple(u.shape) == tuple(v.shape) == (GT_B, GT_H, GT_W)
           and tuple(warped.shape) == (GT_B, GT_H, GT_W, 3), "GT shapes")
     check(bool(torch.isfinite(u).all() and torch.isfinite(v).all()),
@@ -803,11 +846,15 @@ def phase_gt(dev, geom, report):
     med_u = u[:, 12:-12, 12:-12].flatten(1).median(dim=1).values
     med_v = v[:, 12:-12, 12:-12].flatten(1).median(dim=1).values
     print(f"GT liu config2: B={GT_B} {GT_H}x{GT_W}x3, {launches} B4 launches, "
+          f"{warps} liu warp and {resizes} resize launches, "
           f"median inner x-flow {med_u.min().item():.4f}..{med_u.max().item():.4f} "
           f"px (shift {GT_SHIFT}), y-flow {med_v.abs().max().item():.4f} px",
           flush=True)
     check(launches == GT_SOR_CALLS, f"B4 launched {launches} times, "
           f"expected {GT_SOR_CALLS}")
+    check(warps == GT_WARPS and resizes == GT_RESIZES, f"liu warp kernel "
+          f"launched {warps} and {resizes} times, expected {GT_WARPS} and "
+          f"{GT_RESIZES}")
     check(bool(((med_u - GT_SHIFT).abs() < 0.25).all()
                and (med_v.abs() < 0.25).all()), f"GT shift not recovered: "
           f"{med_u.tolist()} {med_v.tolist()}")
@@ -829,7 +876,8 @@ def phase_gt(dev, geom, report):
           f"2 pairs card vs CPU: flow differs on {flips:.2e} of pixels, "
           f"confidence on {conf_off:.2e}; median inner x-flow "
           f"{float(np.median(inner)):.1f} px (shift 3)", flush=True)
-    report["gt"] = dict(liu_launches_sor=launches, median_u=med_u.tolist(),
+    report["gt"] = dict(liu_launches_sor=launches, liu_launches_warp=warps,
+                        liu_launches_resize=resizes, median_u=med_u.tolist(),
                         card_vs_cpu_u=su, card_vs_cpu_v=sv,
                         exhaustive_flip_share=flips,
                         exhaustive_conf_mismatch=conf_off)
@@ -839,7 +887,7 @@ def phase_gt(dev, geom, report):
     check(flips <= TOL_GT_FLIP and conf_off <= TOL_GT_FLIP,
           f"GT exhaustive card vs CPU: {flips} {conf_off}")
     check(abs(float(np.median(inner)) - 3) < 0.5, "GT exhaustive shift")
-    return launches, (im1, im2)
+    return launches, warps, (im1, im2)
 
 
 @torch.no_grad()
@@ -1367,6 +1415,28 @@ def phase_timing(dev, card, ests, frames, gt_frames, report):
           f"included), {k10:.3f} ms a call back to back, plain {p:.3f} ms; "
           f"plan {tuple(sor_kernel.sor_plan(GT_H, GT_W))} (cluster, rows, "
           f"mode)", flush=True)
+    # the liu warp kernel and its resize at the liu cell's finest shape
+    from depth_estimation_tpu_torch.flow import liu_warp
+    ins = liu_warp_inputs(gen, LIU_B, LIU_H, LIU_W, LIU_C, dev)
+    img = ins[1][..., :3].contiguous()
+    for name, kern, plain, work in (
+            ("liu_warp",
+             lambda: liu_warp.warp_update_noise(*ins, noise=True),
+             lambda: liu_warp.warp_update_noise_plain(*ins, noise=True),
+             liu_warp_work(ins[0])),
+            ("liu_resize", lambda: liu_warp.resize(img, *LIU_NEXT),
+             lambda: liu_warp.resize_plain(img, *LIU_NEXT),
+             resize_work(img, *LIU_NEXT))):
+        one, one_plain = cuda_ms(kern), cuda_ms(plain)
+        ten = cuda_ms(lambda: [kern() for _ in range(10)]) / 10
+        ten_plain = cuda_ms(lambda: [plain() for _ in range(10)]) / 10
+        rows[name] = (one, one_plain)
+        rows[f"{name}_back_to_back"] = (ten, ten_plain)
+        b = bound_ms(*work)
+        print(f"[{card}] {name}, B={LIU_B} {LIU_H}x{LIU_W}: kernel {one:.3f} "
+              f"ms for one call, {ten:.3f} ms a call back to back; twin "
+              f"{one_plain:.3f} / {ten_plain:.3f} ms; bound {b[0]:.4f} ms "
+              f"({b[1]})", flush=True)
     im1, im2 = gt_frames
     ms = cuda_ms(lambda: celiu.coarse2fine_flow_batched(im1, im2,
                                                         **GT_SCHEDULE), reps=3)
@@ -1406,6 +1476,8 @@ def phase_timing(dev, card, ests, frames, gt_frames, report):
             torch.empty(imgs.shape, dtype=torch.bfloat16, device="meta"),
             xs, ys)),
         "sor_redblack": bound_ms(*sor_work(planes, 40)),
+        "liu_warp": bound_ms(*liu_warp_work(ins[0])),
+        "liu_resize": bound_ms(*resize_work(img, *LIU_NEXT)),
     }
     for name, (b, by) in bounds.items():
         print(f"bound {name}: {b:.4f} ms ({by})", flush=True)
@@ -3850,7 +3922,8 @@ def main() -> int:
     geom, _, params, _ = mio.load_model(CAR_MODEL)
     counts, ests, frames = phase_slice(dev, geom, params, report)
     phase_card_vs_cpu(dev, geom, params, report)
-    counts["sor_redblack"], gt_frames = phase_gt(dev, geom, report)
+    counts["sor_redblack"], counts["liu_warp"], gt_frames = phase_gt(
+        dev, geom, report)
     counts["match_fast"] = phase_matching_core(dev, card, report)
     counts["match_throughput"] = phase_throughput_core(dev, card, report)
     phase_multiscale(dev, card, report)
@@ -3980,7 +4053,18 @@ def main() -> int:
             ms_bf16_precision_phase=rb["ms"],
             max_abs_err_bf16_precision_phase=rb["max_abs_err"],
             launches_precision_phase=prec["launches"]["total"][key])
-    kernels += [p1, p2]
+    # the liu warp kernel (no TPU kernel: jnp code that XLA fuses) and its
+    # resize, beside their bytes bound
+    liu = entry("liu_warp", "warp_update_noise", "liu_warp.cu",
+                "none (depth_estimation_tpu/flow/celiu.py warp_image, imresize:"
+                " jnp)", "liu_warp")
+    liu.update(ms_back_to_back=rows["liu_warp_back_to_back"][0],
+               plain_ms_back_to_back=rows["liu_warp_back_to_back"][1],
+               resize_ms=rows["liu_resize"][0],
+               resize_plain_ms=rows["liu_resize"][1],
+               resize_ms_back_to_back=rows["liu_resize_back_to_back"][0],
+               resize_bound_ms=bounds["liu_resize"][0])
+    kernels += [liu, p1, p2]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} not launched on its path")
     report["kernels"] = kernels

@@ -114,6 +114,41 @@ def sor_work(planes, n_sor):
     return 11 * planes[0].numel() * 4, planes[0].numel() * n_sor * 30
 
 
+def liu_warp_work(im1, update=True, noise=True):
+    """The liu warp kernel's (bytes, flops) for frames im1 (B, H, W, C):
+    u and v read (and with ``update`` du, dv read and u, v written), frame 1
+    and frame 2 read once and the warp written, 4 bytes each; a pixel's
+    coordinates, range test, clamp, corner and weights (22 FP32
+    operations, 2 more for the update), and a value's four-tap blend (7)
+    and noise terms (|It|, its two bounds and the sum: 4)."""
+    n_pix = im1.numel() // im1.shape[-1]
+    C = im1.shape[-1]
+    flow = 4 if update else 2
+    nbytes = 4 * n_pix * (flow + (2 if update else 0) + 3 * C)
+    flops = n_pix * (22 + (2 if update else 0) + C * (7 + (4 if noise else 0)))
+    return nbytes, flops
+
+
+def resize_work(img, h, w):
+    """Liu's resize's (bytes, flops): img read once, the (h, w) output
+    written once; a pixel's two coordinate divisions and subtractions, the
+    clamp, corner and weights (22) and a value's blend and scale (8)."""
+    lead = img.numel() // (img.shape[-3] * img.shape[-2] * img.shape[-1])
+    C = img.shape[-1]
+    return (4 * (img.numel() + lead * h * w * C),
+            lead * h * w * (22 + 8 * C))
+
+
+def liu_warp_inputs(gen, B, H, W, C, dev):
+    """Frames in [0, 1] and a flow of a few px with its increments, as a
+    liu solve's warp sees them: (im1, im2, u, v, du, dv)."""
+    def rnd(scale):
+        return scale * torch.randn(B, H, W, generator=gen, device=dev)
+    im1 = torch.rand(B, H, W, C, generator=gen, device=dev)
+    im2 = torch.rand(B, H, W, C, generator=gen, device=dev)
+    return im1, im2, rnd(2.0), rnd(2.0), rnd(0.3), rnd(0.3)
+
+
 def sor_planes(gen, B, H, W, dev):
     """Random well-conditioned SOR planes as the solver builds them: zero
     boundary weights, denominators above the weights' sum."""
@@ -222,8 +257,8 @@ def _features(gen, B, H, W, K, win, dev):
 def kernel_rows(dev):
     """(name, fn, flops, n_exp, bytes, n_idx) of every row at ``dev``'s
     shapes: B1 (bf16, f32), B2 (bf16), B5 (f32), B3 (f32, bf16), B4, the
-    celiu packed-tap warp and the conv trunk."""
-    from depth_estimation_tpu_torch.flow import celiu, sor_kernel
+    liu warp kernel and the conv trunk."""
+    from depth_estimation_tpu_torch.flow import liu_warp, sor_kernel
     from depth_estimation_tpu_torch.geometry import Geometry
     from depth_estimation_tpu_torch.geometry3d import undistort
     from depth_estimation_tpu_torch.geometry3d.calibration import ARDRONE
@@ -275,16 +310,11 @@ def kernel_rows(dev):
                                                  n_sor=n_sor),
                  flops, 0, nbytes, 0))
     B, H, W, C = s["celiu"]
-    feats = torch.rand(B, H, W, C, generator=gen, device=dev)
-    cx = torch.rand(B, H, W, generator=gen, device=dev) * (W - 1)
-    cy = torch.rand(B, H, W, generator=gen, device=dev) * (H - 1)
-    n_pix = B * H * W
-    # the image and two coordinate planes read once, C values written once;
-    # one gathered index a pixel into the packed (H, W, 4C) table, and the
-    # four weighted taps summed, 7 operations a value
-    rows.append(("celiu packed-tap warp",
-                 lambda: celiu.bilinear_sample(feats, cx, cy, packed=True),
-                 n_pix * C * 7, 0, n_pix * 4 * (2 * C + 2), n_pix))
+    warp_in = liu_warp_inputs(gen, B, H, W, C, dev)
+    nbytes, flops = liu_warp_work(warp_in[0])
+    rows.append(("liu warp kernel (update, packed-tap warp, noise)",
+                 lambda: liu_warp.warp_update_noise(*warp_in, noise=True),
+                 flops, 0, nbytes, 0))
     B, H, W = s["trunk"]
     geom = Geometry(hImg=H, wImg=W, layers=CAR_LAYERS, maxh=16, maxw=16)
     trunk = ConvFilter(geom).to(dev)

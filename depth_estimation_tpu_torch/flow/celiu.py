@@ -11,7 +11,11 @@
     (``flow/sor_kernel.sor_redblack``, ``csrc/sor_redblack.cu``) on a CUDA
     tensor, its plain twin ``sor_plain`` on a CPU tensor;
   * bilinear (packed taps) or bicubic Hermite warping, out-of-range pixels
-    taking frame-1 values.
+    taking frame-1 values. The bilinear warps (with each outer step's flow
+    update and Laplacian noise estimate) and Liu's resize go through
+    ``flow/liu_warp``: one kernel launch each on a CUDA tensor
+    (``csrc/liu_warp.cu``), their plain twins (``warp_image``,
+    ``laplacian_noise`` and the host-built resize) on a CPU tensor.
 
 The first inner IRLS step's planes (``_irls_planes``) replay on the card
 from a CUDA graph captured once per level shape (``GRAPHS``, the shared
@@ -35,8 +39,9 @@ flow, vy = y (row) flow.
 Numerics follow the reference operation by operation. Two torch habits
 would round differently and are avoided: ``c / tensor`` is a reciprocal
 times c in torch (``_rdiv`` divides where c is not 1 or a power of two),
-and a CUDA ``tensor / scalar`` multiplies by the reciprocal (the resize
-coordinates are computed on the host and moved).
+and a CUDA ``tensor / scalar`` multiplies by the reciprocal (the resize's
+twin computes its coordinates on the host and moves them; the kernel
+divides on the card as the host does).
 """
 
 from __future__ import annotations
@@ -51,6 +56,7 @@ import torch.nn.functional as F
 from ..utils.cuda_graph import GraphCache
 from ..utils.device import as_f32
 from ..utils.timer import count, profiled_span
+from . import liu_warp
 from .sor_kernel import sor_redblack
 
 # the IRLS planes' graphs: the 8 levels of the trainer's schedule at the
@@ -194,16 +200,9 @@ def bilinear_sample(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
 
 
 def imresize(img: torch.Tensor, dst_h: int, dst_w: int) -> torch.Tensor:
-    """Liu's resize: sample at x = (j+1)/ratio - 1. img: (..., H, W, C)."""
-    H, W = img.shape[-3], img.shape[-2]
-    rx = torch.tensor(dst_w / W, dtype=torch.float32)
-    ry = torch.tensor(dst_h / H, dtype=torch.float32)
-    x = (torch.arange(dst_w, dtype=torch.float32) + 1.0) / rx - 1.0
-    y = (torch.arange(dst_h, dtype=torch.float32) + 1.0) / ry - 1.0
-    lead = img.shape[:-3]
-    xx = x[None, :].expand(lead + (dst_h, dst_w)).to(img.device)
-    yy = y[:, None].expand(lead + (dst_h, dst_w)).to(img.device)
-    return bilinear_sample(img, xx, yy, packed=True)
+    """Liu's resize: sample at x = (j+1)/ratio - 1. img: (..., H, W, C)
+    float32 (``liu_warp.resize``: the kernel on a CUDA tensor)."""
+    return liu_warp.resize(img, dst_h, dst_w)
 
 
 def _pixel_coords(vx: torch.Tensor, vy: torch.Tensor, H: int, W: int):
@@ -283,6 +282,14 @@ def warp_image_bicubic(im1: torch.Tensor, im2: torch.Tensor,
 
 
 _WARPERS = {"bilinear": warp_image, "bicubic": warp_image_bicubic}
+
+
+def _warp(im1, im2, u, v, interpolation: str) -> torch.Tensor:
+    """The solver's warp of im2 by (u, v): bilinear through ``liu_warp``
+    (the kernel on a CUDA tensor), bicubic in torch."""
+    if interpolation == "bilinear":
+        return liu_warp.warp_update_noise(im1, im2, u, v)[2]
+    return _WARPERS[interpolation](im1, im2, u, v)
 
 
 # ---------------------------------------------------------------------------
@@ -535,7 +542,10 @@ def smooth_flow_sor(im1f, im2f, warp, u, v, lap_para, alpha,
     eagerly. The SOR solve from a zero start (the first inner step, and
     every step of the reference's schedules, which use n_inner = 1) goes
     through ``sor_redblack``: kernel B4 for a CUDA tensor, ``sor_plain`` for
-    a CPU tensor. A warm start (n_inner > 1) runs ``sor_plain``."""
+    a CPU tensor. A warm start (n_inner > 1) runs ``sor_plain``. Each
+    outer step's flow update, bilinear warp and Laplacian noise estimate
+    are one ``liu_warp.warp_update_noise`` call; bicubic warps and the
+    'gmm' estimate run in torch."""
     omega = 1.8
 
     for _ in range(n_outer):
@@ -561,14 +571,20 @@ def smooth_flow_sor(im1f, im2f, warp, u, v, lap_para, alpha,
                                        omega=omega, du=du, dv=dv)
 
         with profiled_span("liu.warp"):
-            u = u + du
-            v = v + dv
-            warp = _WARPERS[interpolation](im1f, im2f, u, v)
+            lap = noise_model == "lap"
+            if interpolation == "bilinear":
+                u, v, warp, noise = liu_warp.warp_update_noise(
+                    im1f, im2f, u, v, du, dv, noise=lap)
+            else:
+                u = u + du
+                v = v + dv
+                warp = _WARPERS[interpolation](im1f, im2f, u, v)
+                noise = laplacian_noise(im1f, warp) if lap else None
 
             if noise_model == "gmm":
                 gm = est_gaussian_mixture(im1f, warp, gm)
             else:
-                lap_para = laplacian_noise(im1f, warp)
+                lap_para = noise
     return u, v, warp, lap_para, gm
 
 
@@ -633,16 +649,16 @@ def coarse2fine_flow(
             warp = f2
         else:
             with profiled_span("liu.warp"):
-                u = imresize(u[..., None], h, w)[..., 0] * (1 / ratio)
-                v = imresize(v[..., None], h, w)[..., 0] * (1 / ratio)
-                warp = _WARPERS[interpolation](f1, f2, u, v)
+                u = liu_warp.resize(u[..., None], h, w, 1 / ratio)[..., 0]
+                v = liu_warp.resize(v[..., None], h, w, 1 / ratio)[..., 0]
+                warp = _warp(f1, f2, u, v, interpolation)
         u, v, warp, lap_para, gm = smooth_flow_sor(
             f1, f2, warp, u, v, lap_para, alpha,
             n_outer + k, n_inner, n_sor + k * 3,
             noise_model=noise_model, gm=gm, interpolation=interpolation,
         )
     with profiled_span("liu.warp"):
-        warped = _WARPERS[interpolation](im1, im2, u, v).clamp(0.0, 1.0)
+        warped = _warp(im1, im2, u, v, interpolation).clamp(0.0, 1.0)
     return u, v, warped
 
 

@@ -67,6 +67,13 @@ SIGNATURES = {
         # ty_n, band_h, band_w, stream
         "match_throughput_launch": [_P] * 6 + [_I] * 12 + [_P],
     },
+    "liu_warp": {
+        # im1, im2, u, v, du, dv, u_out, v_out, warp, part_sum, part_cnt,
+        # lap, B, H, W, C, px_per_block, stream
+        "liu_warp_launch": [_P] * 12 + [_I] * 5 + [_P],
+        # img, out, B, H, W, C, h, w, rx, ry, scale, px_per_block, stream
+        "liu_resize_launch": [_P, _P] + [_I] * 6 + [_F] * 3 + [_I, _P],
+    },
     "vpu_peak": {
         # x, out, n, n_iter, variant, threads, blocks_per_sm, stream
         "vpu_peak_launch": [_P, _P] + [_I] * 5 + [_P],

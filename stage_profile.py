@@ -109,21 +109,16 @@ def instrument(est, totals):
 
 def instrument_gt(totals):
     """Stages of the liu solve (flow/celiu.py): the pyramids, each IRLS
-    level, and inside it the derivatives, B4 and the noise estimate; the
-    bilinear warps (inside and between levels)."""
-    from depth_estimation_tpu_torch.flow import celiu
-    warp = celiu._WARPERS["bilinear"]        # the solver looks warps up here
-    celiu._WARPERS["bilinear"] = timed(totals, "warps", warp)
-    undo = wrap([(celiu, "build_pyramid", "pyramids"),
+    level, and inside it the derivatives and B4; the liu warp kernel's
+    calls (each outer step's update, warp and noise estimate, the warps
+    between levels and the final one) and its resizes (flow/liu_warp.py)."""
+    from depth_estimation_tpu_torch.flow import celiu, liu_warp
+    return wrap([(celiu, "build_pyramid", "pyramids"),
                  (celiu, "smooth_flow_sor", "level"),
                  (celiu, "get_dxs", "level.get_dxs"),
                  (celiu, "sor_redblack", "level.sor_B4"),
-                 (celiu, "laplacian_noise", "level.noise")], totals)
-
-    def undo_all():
-        undo()
-        celiu._WARPERS["bilinear"] = warp
-    return undo_all
+                 (liu_warp, "warp_update_noise", "warps"),
+                 (liu_warp, "resize", "resizes")], totals)
 
 
 def instrument_core(totals):

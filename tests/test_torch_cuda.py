@@ -21,7 +21,12 @@ thread's pair and at images smaller than one tile. The training slice
 has no kernel of its own: its trainers (3 criteria, and the multiscale
 trainer) are held card vs CPU, and the 'liu' GT of a pair loader is held
 to launch B4; the batched liu GT at the benchmark cell's shapes launches
-B4 68 times and equals the plain reference on the card. B1 and B3 pass
+B4 68 times, the liu warp kernel 76 times and its resize 28 times, and
+equals the plain reference on the card. The liu warp kernel and its
+resize equal their twins bit for bit (the noise estimate within 1e-5) at
+every level of the cell's pyramid, at ragged widths and 1 to 5 channels,
+past every edge of the image, with NaN flows, on identical frames and on
+stale memory. B1 and B3 pass
 ``torch.library.opcheck`` as operators on CUDA tensors, and a loaded
 flow-forward artifact launches B1 once a call and equals the live
 forward. The peak meter's P1 (FMA and exp chains) and P2 (1 to 8
@@ -391,6 +396,187 @@ def test_sor_barrier_probe_runs_each_mode_uncounted(dev, H, W):
     assert sor_kernel.sor_redblack.launches == n0
 
 
+# ---------------------------------------------------------------------------
+# the liu solve's warps (csrc/liu_warp.cu) against their plain twins
+# ---------------------------------------------------------------------------
+
+def _cell_levels():
+    """(H, W) of the liu cell's pyramid (180x320, ratio 0.75, min_width
+    30), finest first."""
+    from depth_estimation_tpu_torch.flow import celiu
+    return celiu.pyramid_shapes(180, 320, 0.75, 30)
+
+
+def _warp_inputs(dev, lead, H, W, C, seed, flow=2.0):
+    """Frames in [0, 1], a flow of a few px and its increments."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shape = tuple(lead) + (H, W)
+
+    def rnd(scale, c=()):
+        return scale * torch.randn(shape + c, generator=g, device=dev)
+    im1 = torch.rand(shape + (C,), generator=g, device=dev)
+    im2 = torch.rand(shape + (C,), generator=g, device=dev)
+    return im1, im2, rnd(flow), rnd(flow), rnd(0.3), rnd(0.3)
+
+
+def _warp_both(*args, noise=True):
+    """The kernel (counted once) and its twin on the same CUDA tensors."""
+    from depth_estimation_tpu_torch.flow import liu_warp
+    n0 = liu_warp.warp_update_noise.launches
+    got = liu_warp.warp_update_noise(*args, noise=noise)
+    assert liu_warp.warp_update_noise.launches == n0 + 1
+    ref = liu_warp.warp_update_noise_plain(*args, noise=noise)
+    torch.cuda.synchronize()
+    return got, ref
+
+
+def _held_to_twin(got, ref):
+    """u, v and the warp bit for bit (NaN where the twin's is NaN); the
+    noise estimate within 1e-5, and 0 exactly where the twin's is."""
+    for g, r in zip(got[:3], ref[:3]):
+        assert g.shape == r.shape
+        assert torch.equal(torch.isnan(g), torch.isnan(r))
+        assert torch.equal(torch.nan_to_num(g), torch.nan_to_num(r))
+    if ref[3] is None:
+        assert got[3] is None
+        return
+    assert got[3].shape == ref[3].shape
+    assert torch.equal(got[3] == 0, ref[3] == 0)
+    torch.testing.assert_close(got[3], ref[3], rtol=1e-5, atol=0,
+                               equal_nan=True)
+
+
+@pytest.mark.parametrize("k", range(8))
+def test_liu_warp_kernel_cell_levels_equal_twin(dev, k):
+    levels = _cell_levels()
+    assert len(levels) == 8
+    H, W = levels[k]
+    ins = _warp_inputs(dev, (3,), H, W, 5, seed=k)
+    _held_to_twin(*_warp_both(*ins))
+    # the warps between levels and the final one: no update, no noise
+    got, ref = _warp_both(*ins[:4], noise=False)
+    _held_to_twin(got, ref)
+    assert got[0] is ins[2] and got[1] is ins[3]
+
+
+@pytest.mark.parametrize("C", [1, 3, 5])
+@pytest.mark.parametrize("W", [1, 31, 33, 127])
+def test_liu_warp_kernel_ragged_widths_equal_twin(dev, W, C):
+    ins = _warp_inputs(dev, (2,), 7, W, C, seed=W * 10 + C)
+    _held_to_twin(*_warp_both(*ins))
+    _held_to_twin(*_warp_both(*ins[:4], noise=False))
+    _held_to_twin(*_warp_both(*ins, noise=False))
+    # one image with no leading dims, and two leading dims
+    _held_to_twin(*_warp_both(*(t[0] for t in ins)))
+    _held_to_twin(*_warp_both(*(t.reshape((2, 1) + t.shape[1:])
+                                for t in ins)))
+
+
+def test_liu_warp_kernel_past_every_edge_equals_twin(dev):
+    """Sample points before, exactly on and past each edge (frame 1 where
+    they leave the image) among interior ones, and NaN flows (NaN warps,
+    NaN noise sums)."""
+    H, W = 23, 41
+    im1, im2, u, v, du, dv = _warp_inputs(dev, (4,), H, W, 5, seed=3)
+    j = torch.arange(W, dtype=torch.float32, device=dev)
+    i = torch.arange(H, dtype=torch.float32, device=dev)[:, None]
+    offs = torch.tensor([-3.0, -0.25, 0.0, 0.5, 1.0, 1.25], device=dev)
+    pick = torch.randint(0, 14, (2, 4, H, W), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(4))
+
+    def edge(p, n, inside):
+        # p < 6: near the first row or column, 6-11 near the last, else
+        # the random flow's point
+        near = torch.where(p < 6, offs[p % 6], (n - 1) + offs[p % 6])
+        return torch.where(p < 12, near, inside)
+    u = edge(pick[0], W, j + u) - j
+    v = edge(pick[1], H, i + v) - i
+    z = torch.zeros_like(u)
+    got, ref = _warp_both(im1, im2, u, v, z, z)
+    outside = (j + u < 0) | (j + u > W - 1) | (i + v < 0) | (i + v > H - 1)
+    assert 0.2 < float(outside.float().mean()) < 0.8
+    _held_to_twin(got, ref)
+    _held_to_twin(*_warp_both(im1, im2, u, v, du, dv))
+    u[0, 3, 5] = v[1, 7, 8] = float("nan")
+    got, ref = _warp_both(im1, im2, u, v, du, dv)
+    assert torch.isnan(ref[2]).any() and torch.isnan(ref[3]).any()
+    _held_to_twin(got, ref)
+
+
+def test_liu_warp_kernel_identical_frames_read_no_noise(dev):
+    im1 = _warp_inputs(dev, (3,), 45, 80, 5, seed=9)[0]
+    z = torch.zeros(im1.shape[:-1], device=dev)
+    got, ref = _warp_both(im1, im1.clone(), z, z, z, z)
+    _held_to_twin(got, ref)
+    assert torch.equal(got[2], im1) and not got[3].any()
+
+
+@pytest.mark.parametrize("H,W", [(180, 320), (42, 75)])
+def test_liu_warp_kernel_ignores_stale_memory(dev, H, W):
+    # every output is allocated empty: the kernel sets each element itself,
+    # whatever the allocator hands back (here blocks just filled with NaN)
+    ins = _warp_inputs(dev, (3,), H, W, 5, seed=H)
+    stale = [torch.full((3, H, W, 5), float("nan"), device=dev)
+             for _ in range(6)]
+    del stale
+    _held_to_twin(*_warp_both(*ins))
+
+
+def _resize_both(img, h, w, scale=1.0):
+    from depth_estimation_tpu_torch.flow import liu_warp
+    n0 = liu_warp.resize.launches
+    got = liu_warp.resize(img, h, w, scale)
+    assert liu_warp.resize.launches == n0 + 1
+    ref = liu_warp.resize_plain(img, h, w, scale)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape and torch.isfinite(got).all()
+    return got, ref
+
+
+@pytest.mark.parametrize("k", range(1, 8))
+def test_liu_resize_kernel_cell_pyramid_equals_twin(dev, k):
+    """Each level of the cell's pyramid from the finest frame (B=3, RGB),
+    and the flow's upsampling from level k to k - 1 (1 channel, times
+    1 / ratio)."""
+    levels = _cell_levels()
+    g = torch.Generator(device=dev).manual_seed(k)
+    img = torch.rand(3, 180, 320, 3, generator=g, device=dev)
+    assert torch.equal(*_resize_both(img, *levels[k]))
+    flow = 3 * torch.randn((3,) + levels[k] + (1,), generator=g, device=dev)
+    assert torch.equal(*_resize_both(flow, *levels[k - 1], 1 / 0.75))
+
+
+@pytest.mark.parametrize("C", [1, 3, 5])
+@pytest.mark.parametrize("W", [1, 31, 33, 127])
+def test_liu_resize_kernel_ragged_widths_equal_twin(dev, W, C):
+    g = torch.Generator(device=dev).manual_seed(W + C)
+    img = torch.rand(2, 9, W, C, generator=g, device=dev)
+    for h, w in ((5, max(1, W // 2)), (13, W + 7), (1, 1)):
+        assert torch.equal(*_resize_both(img, h, w))
+        assert torch.equal(*_resize_both(img[0], h, w, 2.0))
+    stale = [torch.full((2, 13, W + 7, C), float("nan"), device=dev)
+             for _ in range(4)]
+    del stale
+    assert torch.equal(*_resize_both(img, 13, W + 7))
+
+
+def test_liu_warp_kernels_refuse_what_they_do_not_take(dev):
+    from depth_estimation_tpu_torch.flow import liu_warp
+    ins = _warp_inputs(dev, (2,), 9, 11, 17, seed=1)
+    n0 = (liu_warp.warp_update_noise.launches, liu_warp.resize.launches)
+    with pytest.raises(ValueError, match="channels"):
+        liu_warp.warp_update_noise(*ins, noise=True)
+    with pytest.raises(ValueError, match="channels"):
+        liu_warp.resize(ins[0], 5, 5)
+    with pytest.raises(ValueError, match="float32"):
+        liu_warp.resize(ins[0][..., :3].half(), 5, 5)
+    with pytest.raises(ValueError, match="cpu"):
+        liu_warp.warp_update_noise(ins[0][..., :3], ins[1][..., :3],
+                                   ins[2].cpu(), ins[3])
+    assert (liu_warp.warp_update_noise.launches,
+            liu_warp.resize.launches) == n0
+
+
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16,
                                 torch.float16])
 @pytest.mark.parametrize("H,W", [(1, 1), (3, 5), (7, 31), (9, 33), (2, 63),
@@ -728,10 +914,16 @@ def test_liu_flow_batched_at_the_cells_shapes_equals_the_reference(dev):
     base = base.permute(0, 2, 3, 1)
     im1 = base[:, 1:181, 3:323].contiguous()
     im2 = base[:, :180, :320].contiguous()
+    from depth_estimation_tpu_torch.flow import liu_warp
     n0 = sor_kernel.sor_redblack.launches
+    w0, r0 = liu_warp.warp_update_noise.launches, liu_warp.resize.launches
     vx, vy = groundtruth.liu_flow_batched(im1, im2)
     torch.cuda.synchronize()
     assert sor_kernel.sor_redblack.launches == n0 + 68
+    # a warp an IRLS step, one between each two levels and the final one;
+    # the pyramids' 2 x 7 resizes and the flow's 2 x 7 upsamplings
+    assert liu_warp.warp_update_noise.launches == w0 + 76
+    assert liu_warp.resize.launches - r0 <= 28
     assert vx.shape == vy.shape == (64, 180, 320) and vx.device == im1.device
     rx, ry, _ = ref.coarse_to_fine(im1, im2)
     gap = max(float((vx - rx).abs().max()), float((vy - ry).abs().max()))
