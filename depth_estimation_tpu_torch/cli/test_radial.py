@@ -1,11 +1,12 @@
 """Radial online tester CLI (port of ``depth_estimation_tpu.cli.test_radial``).
 
-The polar streaming loop, per frame: undistort -> ego-motion -> epipole
-with EMA smoothing (alpha 0.5; an epipole out of frame keeps the previous
-one) -> epipole-centered polar warp of the current and the
-rotation-compensated previous frame -> radial matcher -> WTA flow ->
-polar -> cartesian warp back -> flow2depth -> HSL colour panel written to
-disk; with ``-cmp`` also a panel of depth from a dense variational flow.
+The polar streaming loop, per frame, through ``api_radial.
+BatchedRadialEstimator`` on one stream: ego-motion -> epipole with EMA
+smoothing (alpha 0.5; an epipole out of frame keeps the previous one) ->
+epipole-centered polar warp of the current and the rotation-compensated
+previous frame -> radial matcher -> WTA flow -> polar -> cartesian warp
+back -> flow2depth -> HSL colour panel written to disk; with ``-cmp``
+also a panel of depth from a dense variational flow.
 Run as ``python -m depth_estimation_tpu_torch.cli.test_radial``.
 """
 
@@ -46,13 +47,13 @@ def build_parser():
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
-    from ..data import datasets as ds_mod
+    from ..api_radial import BatchedRadialEstimator
     from ..data import images as img_mod
     from ..geometry3d import calibration as calmod
     from ..geometry3d import polar as polar_ops
     from ..models import io as mio
     from ..models.radial import RadialFlowNetwork
-    from ..utils.device import resolve
+    from ..utils.device import as_f32, resolve
     from ..utils.timer import Timers
     from ..utils.viz import save_image
 
@@ -68,39 +69,21 @@ def main(argv=None) -> int:
     loader = img_mod.ImageLoader(args.root_directory, cal.hImg, cal.wImg)
     os.makedirs(args.output_dir, exist_ok=True)
     timers = Timers(sync_device=True)
+    est = BatchedRadialEstimator(net, cal, args.h_input, args.w_input,
+                                 args.k_infty, device=dev)
 
     prev = loader.get_next_frame()
-    e2_smooth = None
+    est.reset(as_f32(prev[None], dev))
     k = 0
     while True:
         img = loader.get_next_frame()
         if img is None or k >= args.num_images:
             break
         timers.tic("pair")
-        pair = ds_mod.load_polar_pair(
-            cal, prev, img, args.h_input, args.w_input,
-            args.h_input, args.w_input, net.w_kernel, device=dev)
-        e2_smooth = ds_mod.smooth_epipole(e2_smooth, pair.e2,
-                                          args.h_input, args.w_input)
-        if pair.good:
-            flow, _ = net.flow(torch.as_tensor(pair.polar_prev_image, device=dev),
-                               torch.as_tensor(pair.polar_image, device=dev))
-            flow = flow.float()
-            # warp the flow back to cartesian space around the epipole
-            k_out = polar_ops.get_k_output(args.h_input, net.h_kernel,
-                                           args.h_win)
-            h_out = int(args.h_input * k_out)
-            w_out = int(args.w_input * k_out)
-            ex, ey = float(e2_smooth[0]) * k_out, float(e2_smooth[1]) * k_out
-            p2c = polar_ops.get_p2c_grid(
-                flow.shape[1], flow.shape[0], w_out, h_out, ex, ey,
-                rmax=polar_ops.get_rmax(args.h_input, args.w_input, e2_smooth)
-                * k_out, device=dev)
-            cart_flow = polar_ops.warp_grid(flow[..., None], p2c)[..., 0]
-            depth, confs = polar_ops.flow2depth(h_out, w_out, cart_flow,
-                                                (ex, ey), args.k_infty)
+        out = est.next_frames(as_f32(img[None], dev))
+        if bool(out.good[0]):
             save_image(os.path.join(args.output_dir, f"{k:09d}.png"),
-                       polar_ops.depth2color(depth, confs))
+                       polar_ops.depth2color(out.depth[0], out.confs[0]))
             if args.compare_dense:
                 # dense-flow baseline: flow magnitude -> depth panel
                 from ..flow import get_optical_flow
@@ -111,13 +94,14 @@ def main(argv=None) -> int:
                 u, v = get_optical_flow(ps, cs, ratio=0.75, n_outer=3,
                                         n_sor=20)
                 mag = torch.sqrt(u * u + v * v)
+                e2 = out.e2[0].tolist()
                 ddepth, dconfs = polar_ops.flow2depth(
-                    args.h_input, args.w_input, mag,
-                    (float(e2_smooth[0]), float(e2_smooth[1])), args.k_infty)
+                    args.h_input, args.w_input, mag, (e2[0], e2[1]),
+                    args.k_infty)
                 save_image(os.path.join(args.output_dir, f"{k:09d}_dense.png"),
                            polar_ops.depth2color(ddepth, dconfs))
                 timers.toc("dense", mag)
-        timers.toc("pair", pair.polar_image)
+        timers.toc("pair", out.depth)
         prev = img
         k += 1
     print(timers.report())

@@ -14,8 +14,10 @@
     pairs at once, as batched torch ops on the device;
     ``load_data_optical_flow`` assembles a dataset from ``directory/images/``;
     ``FlowDataset`` is the lazy per-frame form.
-  * the polar pipeline of the radial trainer: ``polar_batch`` (ego-motion,
-    epipole, rotation removal and the polar warps for a stack of pairs),
+  * the polar pipeline of the radial trainer and tester: ``polar_batch``
+    (``polar_ego``: ego-motion with the full tracker and the epipole;
+    ``polar_warps``: rotation removal and the polar warps, for a stack of
+    pairs; ``api_radial`` runs the same two stages),
     ``polar_gt_batch`` (the exhaustive GT projected onto the radius and
     warped to polar rows), ``load_polar_pairs_batched`` over both,
     ``load_polar_pair_reference`` (the per-pair formulation it is held
@@ -633,18 +635,33 @@ def load_polar_pair_reference(
 
 
 @torch.no_grad()
-def polar_batch(prevs: torch.Tensor, imgs: torch.Tensor, K, cal_w: int,
-                cal_h: int, h_img: int, w_img: int, h_input: int,
-                w_input: int, w_kernel: int, max_points: int, quality: float,
-                noise: torch.Tensor, pixel_prevs: Optional[torch.Tensor] = None,
+def polar_ego(prevs: torch.Tensor, imgs: torch.Tensor, K, cal_w: int,
+              w_img: int, max_points: int, quality: float,
+              noise: torch.Tensor):
+    """The polar chain's ego-motion for (B, H, W, C) frame pairs at the
+    calibration's size: ``egomotion.get_ego_motion_batched`` with the full
+    tracker (corners, full-image LK, essential RANSAC with ``noise``
+    (n_samples, 8, max_points) shared by every item), and the epipole K T
+    / T_z scaled to the working width. Returns (EgoMotion, e2 (B, 2))."""
+    K = as_f32(K, prevs.device)
+    em = ego.get_ego_motion_batched(prevs, imgs, K, max_points, quality,
+                                    noise=noise, n_samples=noise.shape[0],
+                                    tracker="full")
+    e = em.T @ K.T
+    return em, (e[:, :2] / e[:, 2:3]) * (w_img / cal_w)
+
+
+@torch.no_grad()
+def polar_warps(prevs: torch.Tensor, imgs: torch.Tensor, K, R: torch.Tensor,
+                e2: torch.Tensor, cal_w: int, cal_h: int, h_img: int,
+                w_img: int, h_input: int, w_input: int, w_kernel: int,
+                pixel_prevs: Optional[torch.Tensor] = None,
                 pixel_imgs: Optional[torch.Tensor] = None):
-    """Ego-motion -> epipole -> rotation removal -> polar warps for (B, H,
-    W, C) frame pairs on their device: corners, full-image LK, essential
-    RANSAC with ``noise`` shared by every item, the epipole scaled to the
-    working width, the rotation warp of the previous frame and of a ones
-    mask (> 0.5, its one-pixel border zeroed), rmax and the polar grid per
-    item in float32, and the polar warps of the current frame, the warped
-    previous frame and the mask (> 0).
+    """The polar chain after ego-motion: both frames rescaled to (h_img,
+    w_img), the rotation R warp of the previous frame and of a ones mask
+    (> 0.5, its one-pixel border zeroed), rmax and the polar grid about
+    each epipole e2 (B, 2) in float32, and the polar warps of the current
+    frame, the warped previous frame and the mask (> 0).
 
     ``pixel_prevs``/``pixel_imgs`` (optional, same shapes) split the
     frames' roles: the geometry and the cartesian frames the GT matcher
@@ -652,24 +669,16 @@ def polar_batch(prevs: torch.Tensor, imgs: torch.Tensor, K, cal_w: int,
     pixel frames warped through that geometry (training on noisy pixels
     with targets from clean frames).
 
-    Returns (p_img, p_prev, p_mask, e2, n_inliers, n_found, prev_w,
-    img_s, mask) as tensors."""
-    K = as_f32(K, prevs.device)
-    Ks = K.clone()
+    Returns (p_img, p_prev, p_mask, prev_w, img_s, mask)."""
+    Ks = as_f32(K, prevs.device).clone()
     Ks[0] = Ks[0] * (w_img / cal_w)
     Ks[1] = Ks[1] * (h_img / cal_h)
     lp = (w_kernel - 1) // 2
-    pts, pvalid = ego.good_features_to_track_batched(prevs, max_points, quality)
-    pts2, status = ego.track_lk_batched(prevs, imgs, pts)
-    em = ego.get_ego_motion_from_matches_batched(pts, pts2, pvalid & status,
-                                                 K, noise)
-    e = em.T @ K.T
-    e2 = (e[:, :2] / e[:, 2:3]) * (w_img / cal_w)
     img_s = scale_batched_device(imgs, h_img, w_img)
     prev_s = scale_batched_device(prevs, h_img, w_img)
-    prev_w = undist.remove_ego_motion_batched(prev_s, Ks, em.R)
+    prev_w = undist.remove_ego_motion_batched(prev_s, Ks, R)
     ones = torch.ones((prevs.shape[0], h_img, w_img, 1), device=prevs.device)
-    mask = (undist.remove_ego_motion_batched(ones, Ks, em.R)[..., 0]
+    mask = (undist.remove_ego_motion_batched(ones, Ks, R)[..., 0]
             > 0.5).float()
     border = torch.zeros((h_img, w_img), device=prevs.device)
     border[1:-1, 1:-1] = 1.0
@@ -683,11 +692,31 @@ def polar_batch(prevs: torch.Tensor, imgs: torch.Tensor, K, cal_w: int,
     else:
         pix_img_s = scale_batched_device(pixel_imgs, h_img, w_img)
         pix_prev_w = undist.remove_ego_motion_batched(
-            scale_batched_device(pixel_prevs, h_img, w_img), Ks, em.R)
+            scale_batched_device(pixel_prevs, h_img, w_img), Ks, R)
     p_img = polar_ops.warp_grid_batched(pix_img_s, grid)
     p_prev = polar_ops.warp_grid_batched(pix_prev_w, grid)
     p_mask = (polar_ops.warp_grid_batched(mask[..., None], grid)[..., 0]
               > 0).float()
+    return p_img, p_prev, p_mask, prev_w, img_s, mask
+
+
+@torch.no_grad()
+def polar_batch(prevs: torch.Tensor, imgs: torch.Tensor, K, cal_w: int,
+                cal_h: int, h_img: int, w_img: int, h_input: int,
+                w_input: int, w_kernel: int, max_points: int, quality: float,
+                noise: torch.Tensor, pixel_prevs: Optional[torch.Tensor] = None,
+                pixel_imgs: Optional[torch.Tensor] = None):
+    """Ego-motion -> epipole -> rotation removal -> polar warps for (B, H,
+    W, C) frame pairs on their device: ``polar_ego`` then ``polar_warps``
+    (see each), the chain the radial estimator (``api_radial``) runs too.
+
+    Returns (p_img, p_prev, p_mask, e2, n_inliers, n_found, prev_w,
+    img_s, mask) as tensors."""
+    em, e2 = polar_ego(prevs, imgs, K, cal_w, w_img, max_points, quality,
+                       noise)
+    p_img, p_prev, p_mask, prev_w, img_s, mask = polar_warps(
+        prevs, imgs, K, em.R, e2, cal_w, cal_h, h_img, w_img, h_input,
+        w_input, w_kernel, pixel_prevs, pixel_imgs)
     return (p_img, p_prev, p_mask, e2, em.n_inliers, em.n_found, prev_w,
             img_s, mask)
 

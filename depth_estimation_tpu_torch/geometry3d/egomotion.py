@@ -445,7 +445,12 @@ def _decompose_E(E: torch.Tensor):
     """E (..., 3, 3) -> 4 candidate (R (..., 4, 3, 3), t (..., 4, 3))."""
     u, _, vt = torch.linalg.svd(E)
     d = torch.sign(torch.linalg.det(u @ vt))[..., None, None]
-    W = torch.tensor([[0.0, -1, 0], [1, 0, 0], [0, 0, 1]], device=E.device)
+    # W = [[0, -1, 0], [1, 0, 0], [0, 0, 1]], made on the device: a tensor
+    # copied from the host (or written element by element) waits for the
+    # card's queue
+    i = torch.arange(9, device=E.device)
+    W = ((i == 3).to(E.dtype) - (i == 1).to(E.dtype)
+         + (i == 8).to(E.dtype)).reshape(3, 3)
     R1 = u @ W @ vt * d
     R2 = u @ W.T @ vt * d
     t = u[..., :, 2]

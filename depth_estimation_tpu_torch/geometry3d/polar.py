@@ -7,11 +7,12 @@ Conventions: grids are (2, hdst, wdst) float32 with channel 0 = source y,
 channel 1 = source x (0-based pixel coordinates); warping samples
 bilinearly and fills out-of-range with 0. The grid builders take a
 ``device`` (the card by default; ``device="cpu"`` to run on the CPU); the
-other functions run where their tensors are. ``get_c2p_grid`` and
-``get_rmax`` take Python floats (the per-pair reference and the tester);
-``get_c2p_grid_batched``, ``get_rmax_batched`` and ``warp_grid_batched``
-take a centre and rmax per item as float32 tensors (the batched polar
-loader).
+other functions run where their tensors are. ``get_c2p_grid``,
+``get_p2c_grid``, ``get_rmax`` and ``flow2depth`` take Python floats (the
+per-pair forms); their ``_batched`` forms take a centre, rmax and infinity
+per item as tensors and read nothing back to the host (the batched polar
+loader and the batched radial estimator, ``api_radial``), as does
+``smooth_epipole_batched``, ``data/datasets.smooth_epipole`` of each item.
 """
 
 from __future__ import annotations
@@ -72,7 +73,7 @@ def get_c2p_grid_batched(wsrc: int, hsrc: int, wdst: int, hdst: int,
     rpadding) in float32, the arithmetic of the reference's traced grid
     (kr = rmax / hdst^alpha a true division in float32)."""
     dev = rmax.device
-    kr = true_div(rmax, hdst ** alpha)[:, None, None]
+    kr = (rmax / torch.full_like(rmax, hdst ** alpha))[:, None, None]
     ktheta = 2 * math.pi / wdst
     i = torch.arange(hdst, dtype=torch.float32, device=dev)[:, None]
     j = torch.arange(wdst, dtype=torch.float32, device=dev)[None, :]
@@ -107,6 +108,29 @@ def get_p2c_grid(wsrc: int, hsrc: int, wdst: int, hdst: int,
     gy = (x * x + y * y) ** (0.5 / alpha) * ky
     gx = torch.remainder(torch.atan2(y, x) + pi2, pi2) * kx
     return torch.stack([gy, gx])
+
+
+def get_p2c_grid_batched(wsrc: int, hsrc: int, wdst: int, hdst: int,
+                         xcenter: torch.Tensor, ycenter: torch.Tensor,
+                         rmax: torch.Tensor, alpha: float = 1.0
+                         ) -> torch.Tensor:
+    """``get_p2c_grid`` with a centre and rmax per item: xcenter, ycenter
+    (B,) float32, rmax (B,) (float64 for the per-pair form's Python
+    floats: ky = hsrc / rmax^(1/alpha) is divided in rmax's dtype, then
+    rounded to float32 as the per-pair form's scalar is). Returns (B, 2,
+    hdst, wdst)."""
+    dev = xcenter.device
+    pi2 = 2 * math.pi
+    kx = wsrc / pi2
+    ky = (torch.full_like(rmax, float(hsrc)) / rmax ** (1.0 / alpha)
+          ).float()[:, None, None]
+    i = torch.arange(hdst, dtype=torch.float32, device=dev)[:, None]
+    j = torch.arange(wdst, dtype=torch.float32, device=dev)[None, :]
+    x = j - xcenter[:, None, None]
+    y = i - ycenter[:, None, None]
+    gy = (x * x + y * y) ** (0.5 / alpha) * ky
+    gx = torch.remainder(torch.atan2(y, x) + pi2, pi2) * kx
+    return torch.stack([gy, gx], dim=1)
 
 
 def warp_grid(img: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
@@ -157,7 +181,9 @@ def get_rmax(h: int, w: int, e2) -> float:
 
 
 def get_rmax_batched(h: int, w: int, e2: torch.Tensor) -> torch.Tensor:
-    """``get_rmax`` in float32 for (B, 2) epipoles (x, y) -> (B,)."""
+    """``get_rmax`` for (B, 2) epipoles (x, y) -> (B,), in e2's dtype:
+    float32 for the polar loader's grid, float64 for the per-pair form's
+    Python floats (then equal to it)."""
     ex, ey = e2[:, 0], e2[:, 1]
     d = torch.maximum(
         torch.maximum(ex * ex + ey * ey, (w - ex) ** 2 + ey * ey),
@@ -193,6 +219,44 @@ def flow2depth(h_img: int, w_img: int, flow: torch.Tensor, center,
     depth = torch.where(d > 10.0, depth, torch.zeros_like(depth))
     confs = (d > 10.0).to(flow.dtype)
     return true_div(depth, infty), confs
+
+
+def flow2depth_batched(flow: torch.Tensor, center: torch.Tensor,
+                       infty: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``flow2depth`` of each item: flow (B, H, W), center (B, 2) float32
+    (x, y), infty (B,) float32, the rmax of each centre times kinfty
+    (``get_rmax_batched`` in float64, as the per-pair form's Python
+    floats). Returns (depth / infty, confidences), (B, H, W) each."""
+    H, W = flow.shape[1], flow.shape[2]
+    ff = flow if flow.is_floating_point() else flow.float()
+    j = torch.arange(W, dtype=torch.float32, device=flow.device)[None, None, :]
+    i = torch.arange(H, dtype=torch.float32, device=flow.device)[None, :, None]
+    inf = infty[:, None, None]
+    d = torch.sqrt((j - center[:, 0, None, None]) ** 2
+                   + (i - center[:, 1, None, None]) ** 2)
+    depth = torch.where(ff < 0.1, inf.expand_as(ff),
+                        d / torch.clamp(ff, min=0.1))
+    depth = torch.where(d > 10.0, depth, torch.zeros_like(depth))
+    confs = (d > 10.0).to(flow.dtype)
+    return depth / inf, confs
+
+
+def smooth_epipole_batched(prev_e2: Optional[torch.Tensor],
+                           e2: torch.Tensor, h_img: int, w_img: int,
+                           alpha: float = 0.5
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``data/datasets.smooth_epipole`` of each item, on the card: the EMA
+    alpha e2 + (1 - alpha) prev of (B, 2) epipoles (x, y); an epipole
+    outside the (h_img, w_img) frame keeps the previous one; no previous
+    (None) takes e2. Returns (smoothed (B, 2), kept (B,) bool: the items
+    that kept the previous epipole)."""
+    if prev_e2 is None:
+        return e2, torch.zeros(e2.shape[:1], dtype=torch.bool,
+                               device=e2.device)
+    inside = ((e2[:, 0] >= 0) & (e2[:, 0] < w_img)
+              & (e2[:, 1] >= 0) & (e2[:, 1] < h_img))
+    ema = alpha * e2 + (1 - alpha) * prev_e2
+    return torch.where(inside[:, None], ema, prev_e2), ~inside
 
 
 def radial_depth_cartesian(flow: torch.Tensor, center,

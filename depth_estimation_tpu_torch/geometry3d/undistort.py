@@ -74,7 +74,8 @@ def homography_grid(K, R: torch.Tensor, H: int, W: int):
     R (..., 3, 3). Returns (xs, ys) (..., H, W)."""
     R = _as_f32(R, R.device if torch.is_tensor(R) else None)
     K = _as_f32(K, R.device)
-    Hm = K @ R @ torch.linalg.inv(K)                     # (..., 3, 3)
+    # inv_ex: the same inverse, without the error check's read to the host
+    Hm = K @ R @ torch.linalg.inv_ex(K).inverse          # (..., 3, 3)
     xx = torch.arange(W, dtype=torch.float32, device=R.device)[None, :]
     yy = torch.arange(H, dtype=torch.float32, device=R.device)[:, None]
     h = [[Hm[..., a, c, None, None] for c in range(3)] for a in range(3)]

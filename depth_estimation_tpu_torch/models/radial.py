@@ -25,6 +25,7 @@ from torch import nn
 from ..ops import matching
 from ..utils.device import resolve
 from ..utils.precision import full_f32
+from ..utils.timer import profiled_span
 from .filters import DenseConv, init_params, to_nchw, to_nhwc
 
 RadialLayer = Union[str, Tuple[int, int, int, int]]
@@ -124,5 +125,6 @@ class RadialFlowNetwork(nn.Module):
     def flow_batch(self, polar_prev, polar_curr):
         """Throughput path: batched (B, H, W, C) polar pairs -> batched
         (flow, min_cost); the same computation as ``flow`` with a leading
-        batch dim."""
-        return self.flow(polar_prev, polar_curr)
+        batch dim, in the program's span ``radial.net``."""
+        with profiled_span("radial.net"):
+            return self.flow(polar_prev, polar_curr)

@@ -8,8 +8,9 @@ trace of CPU and CUDA activity.
 The program's own spans are declared once, in ``SPANS``: the online
 step's three stages (``online.*``, ``api_batched``), ego-motion's five
 (``ego.*``, ``geometry3d/egomotion``), the multiscale decode's two
-(``decode.*``, ``models/multiscale``) and Ce Liu's solve's four
-(``liu.*``, ``flow/celiu``). Each records only while a ``torch.profiler``
+(``decode.*``, ``models/multiscale``), Ce Liu's solve's four
+(``liu.*``, ``flow/celiu``) and the radial estimator's four
+(``radial.*``, ``api_radial`` and ``models/radial``). Each records only while a ``torch.profiler``
 runs, and then as a ``record_function`` range stamped
 on the profiler's clock, the clock of its CUDA kernel records; otherwise,
 and while ``torch.compile`` or ``torch.export`` traces, a span is one
@@ -31,7 +32,13 @@ steps Ce Liu's solve made (``liu.levels``, ``liu.irls_steps``;
 captured a call into a CUDA graph, replayed one, or ran the call eagerly
 (``<name>.captures``, ``<name>.replays``, ``<name>.eager``): RANSAC's QR
 as ``qr_graph`` (``geometry3d/qr_graph``) and an IRLS step's planes as
-``liu_graph`` (``flow/celiu``).
+``liu_graph`` (``flow/celiu``); and the radial estimator's pairs, the
+pairs its gate rejected and the epipoles it kept from the step before
+(``radial.pairs``, ``radial.bad_pairs``, ``radial.epipole_kept``;
+``api_radial``). A count that lives on the card goes through
+``count_on_device``: copied to the host behind the card's work and added
+once the copy has landed, so that the step that counts never waits;
+``fold_counts()`` waits for every copy, for a reader of ``COUNTERS``.
 """
 
 from __future__ import annotations
@@ -113,8 +120,8 @@ SPANS = (
     Span("online.flow", "API: BatchedDepthEstimator._step: compensation, "
          "B1, erosion, embed, depth", BREAKDOWN),
     Span("ego.corners", "ego-motion: Shi-Tomasi corners", BREAKDOWN),
-    Span("ego.lk", "ego-motion: windowed LK (the full tracker offline)",
-         "lk_device_ms.batch"),
+    Span("ego.lk", "ego-motion: windowed LK (the full tracker in the polar "
+         "chain)", "lk_device_ms.batch, lk_device_ms.radial"),
     Span("ego.qr", "ego-motion: RANSAC's 8-point QR", "qr_idle_ms.batch"),
     Span("ego.score", "ego-motion: Sampson distances, inlier counts, the "
          "winner", BREAKDOWN),
@@ -132,16 +139,62 @@ SPANS = (
          BREAKDOWN),
     Span("liu.warp", "liu solve: upsampling between levels, each outer "
          "step's update, warp and noise estimate", "warp_device_ms.liu"),
+    Span("radial.ego", "radial estimator: ego-motion (full tracker), the "
+         "epipole, its EMA and the gate", BREAKDOWN),
+    Span("radial.polar", "radial estimator: rescale, rotation removal, the "
+         "C2P grids, the three polar warps", "polar_device_ms.radial"),
+    Span("radial.net", "radial net: the trunk on both frames, the radial "
+         "SSD and the WTA", "net_device_ms.radial"),
+    Span("radial.depth", "radial estimator: the P2C grid, the warp back, "
+         "flow2depth", "polar_device_ms.radial"),
 )
 
 COUNTERS: Counter = Counter()
 _COUNT_LOCK = threading.Lock()
 
 
-def count(name: str) -> None:
-    """Add one to the program's counter ``name`` (``COUNTERS``)."""
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the program's counter ``name`` (``COUNTERS``)."""
     with _COUNT_LOCK:
-        COUNTERS[name] += 1
+        COUNTERS[name] += n
+
+
+# copies of counts on their way from the card: (event, host tensor, names)
+_PENDING: list = []
+
+
+def count_on_device(names, values: torch.Tensor) -> None:
+    """Add ``values`` (an integer tensor, one entry a name) to the counters
+    ``names`` without waiting for the card: on the CPU at once; on a card
+    through a copy into pinned host memory queued behind the work that
+    made the values, added by the first ``fold_counts`` after it lands."""
+    if values.device.type != "cuda":
+        for name, v in zip(names, values.tolist()):
+            count(name, int(v))
+        return
+    host = torch.empty(values.shape, dtype=values.dtype, pin_memory=True)
+    host.copy_(values, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    with _COUNT_LOCK:
+        _PENDING.append((done, host, tuple(names)))
+    fold_counts(wait=False)
+
+
+def fold_counts(wait: bool = True) -> None:
+    """Add the card's counts whose copies have landed to ``COUNTERS``;
+    with ``wait``, every one, waiting for the copies still on their way."""
+    with _COUNT_LOCK:
+        left = []
+        for done, host, names in _PENDING:
+            if wait:
+                done.synchronize()
+            elif not done.query():
+                left.append((done, host, names))
+                continue
+            for name, v in zip(names, host.tolist()):
+                COUNTERS[name] += int(v)
+        _PENDING[:] = left
 
 
 _OFF = contextlib.nullcontext()

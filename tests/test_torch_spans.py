@@ -1,8 +1,10 @@
 """The program's own spans (``utils/timer.SPANS``): each is opened where the
 table says and nowhere else, under no name the benchmark's wrappers use;
 under a profiler an online step and a staged multiscale decode record
-every one, nested as declared, as does a liu solve; without a profiler,
-and while torch.export traces, a span enters no ``record_function``."""
+every one, nested as declared, as do a liu solve and a radial estimator
+step (whose ego-motion opens the ``ego.*`` spans again, inside
+``radial.ego``); without a profiler, and while torch.export traces, a span
+enters no ``record_function``."""
 
 import dataclasses
 import json
@@ -13,11 +15,11 @@ import numpy as np
 import pytest
 import torch
 
-from depth_estimation_tpu_torch import api_batched
+from depth_estimation_tpu_torch import api_batched, api_radial
 from depth_estimation_tpu_torch.flow import celiu
 from depth_estimation_tpu_torch.geometry import Geometry
 from depth_estimation_tpu_torch.geometry3d import calibration
-from depth_estimation_tpu_torch.models import multiscale
+from depth_estimation_tpu_torch.models import multiscale, radial
 from depth_estimation_tpu_torch.utils import timer
 
 PACKAGE = Path(api_batched.__file__).resolve().parent
@@ -26,30 +28,38 @@ PACKAGE = Path(api_batched.__file__).resolve().parent
 # them would be counted as the wrapper's
 RESERVED = {"step", "api", "ego", "trunk", "match", "pyramid", "decode",
             "match_ssd", "solve", "sor"}
-# each span's module, and the program span it lies inside
+# each span's module, and the program spans it lies inside (ego-motion's
+# in the online step's and in the radial step's)
+EGO = ("online.ego", "radial.ego")
 WHERE = {"online.prep": ("api_batched.py", None),
          "online.ego": ("api_batched.py", None),
          "online.flow": ("api_batched.py", None),
-         "ego.corners": ("geometry3d/egomotion.py", "online.ego"),
-         "ego.lk": ("geometry3d/egomotion.py", "online.ego"),
-         "ego.qr": ("geometry3d/egomotion.py", "online.ego"),
-         "ego.score": ("geometry3d/egomotion.py", "online.ego"),
-         "ego.pose": ("geometry3d/egomotion.py", "online.ego"),
+         "ego.corners": ("geometry3d/egomotion.py", EGO),
+         "ego.lk": ("geometry3d/egomotion.py", EGO),
+         "ego.qr": ("geometry3d/egomotion.py", EGO),
+         "ego.score": ("geometry3d/egomotion.py", EGO),
+         "ego.pose": ("geometry3d/egomotion.py", EGO),
          "decode.cost": ("models/multiscale.py", None),
          "decode.select": ("models/multiscale.py", None),
          "liu.pyramid": ("flow/celiu.py", None),
          "liu.irls": ("flow/celiu.py", None),
          "liu.sor": ("flow/celiu.py", None),
-         "liu.warp": ("flow/celiu.py", None)}
+         "liu.warp": ("flow/celiu.py", None),
+         "radial.ego": ("api_radial.py", None),
+         "radial.polar": ("api_radial.py", None),
+         "radial.net": ("models/radial.py", None),
+         "radial.depth": ("api_radial.py", None)}
 # the liu solve below: 3 levels of 1 + k outer steps (k = 0, 1, 2)
 LIU_KW = dict(alpha=0.005, ratio=0.75, min_width=13, n_outer=1, n_inner=1,
               n_sor=2)
 LIU_LEVELS, LIU_STEPS = 3, 6
-# instances a step (the online program) or a call (the decode, the liu
-# solve: the pyramids then a level's features; an outer step's IRLS, SOR
-# and warp; the upsampling between levels and the final warp)
+# instances a step (the online program, the radial estimator: ego-motion
+# once in each) or a call (the decode, the liu solve: the pyramids then a
+# level's features; an outer step's IRLS, SOR and warp; the upsampling
+# between levels and the final warp)
 OPENS = dict.fromkeys(WHERE, 1) | {
-    "ego.score": 2, "liu.pyramid": 1 + LIU_LEVELS, "liu.irls": LIU_STEPS,
+    "ego.corners": 2, "ego.lk": 2, "ego.qr": 2, "ego.score": 4,
+    "ego.pose": 2, "liu.pyramid": 1 + LIU_LEVELS, "liu.irls": LIU_STEPS,
     "liu.sor": LIU_STEPS, "liu.warp": LIU_STEPS + LIU_LEVELS}
 NAMES = [s.name for s in timer.SPANS]
 
@@ -105,6 +115,26 @@ def _decoder():
     return model, imgs
 
 
+def _radial():
+    """A radial estimator on 48x64 frames of a forward step, reset on the
+    first: polar 24x24, a one-layer trunk, hWin 3."""
+    h, w = 48, 64
+    base = calibration.RECTIFIED_GOPRO_SMALL
+    cal = dataclasses.replace(
+        base, name="t", wImg=w, hImg=h, fx=60.0, fy=60.0, cx=w / 2,
+        cy=h / 2, sfm=dataclasses.replace(base.sfm, max_points=48))
+    net = radial.RadialFlowNetwork(((3, 3, 3, 4),), 3, device="cpu").init(
+        torch.Generator().manual_seed(2))
+    est = api_radial.BatchedRadialEstimator(net, cal, 24, 24, device="cpu")
+    gen = torch.Generator().manual_seed(4)
+    tex = torch.rand((1, 3, h // 4, w // 4), generator=gen)
+    frames = [torch.nn.functional.interpolate(
+        tex, (h + 2 * k, w + 2 * k), mode="bilinear")[..., k:k + h, k:k + w]
+        .permute(0, 2, 3, 1) for k in range(2)]
+    est.reset(frames[0])
+    return est, frames[1]
+
+
 def _liu_pair():
     gen = torch.Generator().manual_seed(9)
     base = torch.rand((1, 3, 8, 12), generator=gen)
@@ -116,7 +146,7 @@ def _liu_pair():
 @pytest.fixture(scope="module")
 def programs():
     torch.manual_seed(0)
-    return _estimator(), _decoder(), _liu_pair()
+    return _estimator(), _decoder(), _liu_pair(), _radial()
 
 
 def _ranges(log_dir):
@@ -130,25 +160,31 @@ def _ranges(log_dir):
 
 
 def test_a_step_and_a_decode_record_every_span_nested(programs, tmp_path):
-    (est, frames), (model, imgs), pair = programs
+    (est, frames), (model, imgs), pair, (rest, rframes) = programs
     before = dict(timer.COUNTERS)
     with timer.capture_trace(str(tmp_path)) as started:
         est.next_frames(frames)
         model.decode_full_staged(*imgs)
         celiu.coarse2fine_flow_batched(*pair, **LIU_KW)
+        rest.next_frames(rframes)
     assert started
     for name, n in (("liu.levels", LIU_LEVELS), ("liu.irls_steps", LIU_STEPS)):
         assert timer.COUNTERS[name] - before.get(name, 0) == n
     ranges = _ranges(tmp_path)
-    for name, (_, parent) in WHERE.items():
+    for name, (_, parents) in WHERE.items():
         assert len(ranges.get(name, ())) == OPENS[name], name
         for tid, a, b in ranges[name]:
-            if parent is not None:
+            if parents is not None:
                 assert any(t == tid and pa <= a and b <= pb
-                           for t, pa, pb in ranges[parent]), (name, parent)
-    # the online step's stages, and the decode's, follow one another
+                           for p in (parents if isinstance(parents, tuple)
+                                     else (parents,))
+                           for t, pa, pb in ranges[p]), (name, parents)
+    # the online step's stages, the decode's and the radial step's follow
+    # one another
     for stages in (("online.prep", "online.ego", "online.flow"),
-                   ("decode.cost", "decode.select")):
+                   ("decode.cost", "decode.select"),
+                   ("radial.ego", "radial.polar", "radial.net",
+                    "radial.depth")):
         spans = [ranges[s][0] for s in stages]
         assert all(x[2] <= y[1] for x, y in zip(spans, spans[1:])), spans
 
@@ -159,11 +195,12 @@ def _no_range(*args, **kwargs):
 
 def test_without_a_profiler_a_span_enters_no_range(programs, monkeypatch,
                                                    tmp_path):
-    (est, frames), (model, imgs), pair = programs
+    (est, frames), (model, imgs), pair, (rest, rframes) = programs
     monkeypatch.setattr(torch.profiler, "record_function", _no_range)
     est.next_frames(frames)
     model.decode_full_staged(*imgs)
     celiu.coarse2fine_flow_batched(*pair, **LIU_KW)
+    rest.next_frames(rframes)
     # the patch is live: under a profiler the same span raises
     with timer.capture_trace(str(tmp_path)):
         with pytest.raises(AssertionError, match="record_function"):
@@ -177,7 +214,7 @@ def test_without_a_profiler_a_span_enters_no_range(programs, monkeypatch,
 
 def test_an_export_under_a_profiler_holds_no_profiler_node(programs,
                                                            tmp_path):
-    _, (model, imgs), _ = programs
+    _, (model, imgs), _, _ = programs
 
     class Decode(torch.nn.Module):
         def forward(self, a, b):
