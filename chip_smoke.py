@@ -14,7 +14,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      storage), B4 at the ground truth's finest level (B=8, 192x256, 40
      iterations, one 8-CTA cluster an image), B2 at the matching core's
      (B=8, f32 and bf16), B5 at the same (B=8, f32, its norms computed by
-     the kernel, the twin's by the wrapper); then the shapes beyond the
+     the kernel, the twin's by the wrapper), the liu warp kernel and the
+     IRLS kernel (cold and warm) at the liu cell's finest level (B=64,
+     180x320x5), bit for bit; then the shapes beyond the
      main paths (ROADMAP C24) at B=2, 12x40 outputs: B1 in conf and marg
      mode, f32 and bf16, at windows 17x4, 24x24, 32x32 and 64x64 (K=10)
      and at K 33 and 64 (16x16); B2 (f32, bf16) and B5 at 64x64 (K 1, 32),
@@ -29,8 +31,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      RANSAC noise, end to end and ego-motion stage by stage;
   6. the flow ground truth at full size: the 'liu' solver batched at
      BASELINE config2 (B=8, 192x256x3, alpha 0.005, ratio 0.75, min_width
-     30, 5/1/40) on frames whose scene moves 2 px, with B4's and the liu
-     warp kernel's launches read around it; one pair card vs CPU; the exhaustive GT at car_model's
+     30, 5/1/40) on frames whose scene moves 2 px, with B4's, the liu
+     warp kernel's and the IRLS kernel's launches read around it; one pair
+     card vs CPU; the exhaustive GT at car_model's
      geometry (180x320, 16x16 GT window and kernel), 2 pairs card vs CPU;
   7. the matching core (bench.py's secondary program): uint8 640x480
      frames, B=128 -> 320x180 -> trunk -> crop -> B2 in bf16 -> the depth
@@ -55,10 +58,11 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      launch's device time from torch.profiler, by level, beside the
      dependency floor (one half-sweep's cluster barrier and boundary-row
      exchange, measured by a no-arithmetic probe, times the level's
-     dependent half-sweeps); the liu warp kernel (update, warp, noise)
-     and its resize at the liu cell's finest shape (B=64, 180x320, C=5;
-     the pyramid's first step) beside their twins and their bytes bound,
-     one call and 10 back to back; B2 (bf16, f32) and B5 through their wrappers
+     dependent half-sweeps); the liu warp kernel (update, warp, noise),
+     its resize and the IRLS kernel (a cold step's nine planes) at the liu
+     cell's finest shape (B=64, 180x320, C=5; the pyramid's first step)
+     beside their twins and their bytes bound, one call and 10 back to
+     back; B2 (bf16, f32) and B5 through their wrappers
      on the plan's pixel blocking and on every other compiled blocking,
      and their issue floor (SASS instructions a cell of the plan's
      instantiation, read with cuobjdump, over the card's issue rate);
@@ -224,8 +228,9 @@ import torch
 from depth_estimation_tpu_torch.benchmarks.device_peaks import (
     card_line, sm_clock_under)
 from depth_estimation_tpu_torch.benchmarks.speed_of_light import (
-    CLOCK_HZ, PEAK_BYTES, PEAK_SFU, bound_ms, liu_warp_inputs, liu_warp_work,
-    matcher_bound, resize_work, sor_planes, sor_work, warp_work)
+    CLOCK_HZ, PEAK_BYTES, PEAK_SFU, bound_ms, liu_irls_work, liu_warp_inputs,
+    liu_warp_work, matcher_bound, resize_work, sor_planes, sor_work,
+    warp_work)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CAR_MODEL = os.path.join(ROOT, "examples", "car_model")
@@ -275,6 +280,7 @@ GT_SCHEDULE = dict(alpha=0.005, ratio=0.75, min_width=30, n_outer=5,
 GT_B, GT_H, GT_W, GT_SHIFT = 8, 192, 256, 2
 GT_SOR_CALLS = 56          # 7 levels, n_outer + k IRLS steps at level k
 GT_WARPS = 56 + 6 + 1      # an IRLS step's, one between levels, the final
+GT_IRLS = 56               # the IRLS kernel, once an IRLS step
 GT_RESIZES = 4 * 6         # two pyramid levels and two flows a level
 # the liu cell's finest level (BASELINE config2 at the working size) and
 # its pyramid's first step
@@ -408,6 +414,7 @@ def phase_kernels(dev, report):
     from depth_estimation_tpu_torch.ops import matching, warp
     gen = torch.Generator(device=dev).manual_seed(0)
     liu_err = liu_warp_check(gen, dev)
+    irls_err = liu_irls_check(gen, dev)
     f1 = 0.5 * torch.randn(B_CHECK, 150, 290, 10, generator=gen, device=dev)
     f2 = 0.5 * torch.randn(B_CHECK, 165, 305, 10, generator=gen, device=dev)
     b1_err = 0.0
@@ -505,7 +512,7 @@ def phase_kernels(dev, report):
           f"B5 ey/ex/pmax error {errs5}")
     errs = dict(match_fused=b1_err, warp_banded=b3_err, sor_redblack=b4_err,
                 match_fast=b2_err, match_throughput=max(errs5),
-                liu_warp=liu_err)
+                liu_warp=liu_err, liu_irls=irls_err)
     report["kernel_vs_plain"] = errs
     return errs
 
@@ -823,22 +830,55 @@ def diff_stats(a, b):
                 max=d.max().item())
 
 
+def liu_irls_inputs(gen, dev):
+    """An IRLS step's inputs at the liu cell's finest shape: (im1f, warp,
+    u, v, lap_para, du, dv), lap_para's last channel 0 (its Psi masked)."""
+    im1, im2, u, v, du, dv = liu_warp_inputs(gen, LIU_B, LIU_H, LIU_W, LIU_C,
+                                             dev)
+    lap = 0.05 * torch.rand(LIU_B, LIU_C, generator=gen, device=dev)
+    lap[:, -1] = 0.0
+    return im1, im2, u, v, lap, du, dv
+
+
+def liu_irls_check(gen, dev):
+    """The liu IRLS kernel against its twin (``celiu._irls_planes``) at the
+    liu cell's finest shape, a cold and a warm step: the nine planes bit
+    for bit. Returns the largest absolute error (0)."""
+    from depth_estimation_tpu_torch.flow import celiu, liu_irls
+    im1, im2, u, v, lap, du, dv = liu_irls_inputs(gen, dev)
+    err = 0.0
+    for warm in ({}, dict(du=du, dv=dv)):
+        got = liu_irls.irls_planes(im1, im2, u, v, lap, alpha=0.005, **warm)
+        ref = celiu._irls_planes(im1, im2, u, v, lap, alpha=0.005,
+                                 noise_model="lap", **warm)
+        torch.cuda.synchronize()
+        err = max([err] + [(a - b).abs().max().item()
+                           for a, b in zip(got, ref)])
+    print(f"liu IRLS B={LIU_B} {LIU_H}x{LIU_W}x{LIU_C}, cold and warm: max "
+          f"err of the nine planes {err:.2e}", flush=True)
+    check(err == 0.0, f"liu IRLS kernel not bit for bit: {err}")
+    return err
+
+
 def phase_gt(dev, geom, report):
     """The flow ground truth at full size: the 'liu' solve at config2 with
     B4's launches read around it, one pair card vs CPU, and the exhaustive
-    GT at car_model's geometry card vs CPU. Returns B4's launch count."""
+    GT at car_model's geometry card vs CPU. Returns the launch counts of B4,
+    the liu warp kernel and the IRLS kernel, and the frames."""
     from depth_estimation_tpu_torch.data import groundtruth as gt
     from depth_estimation_tpu_torch.flow import celiu, sor_kernel
     gen = torch.Generator(device=dev).manual_seed(3)
     im1, im2 = shifted_textures(gen, GT_B, GT_H, GT_W, GT_SHIFT, dev)
-    from depth_estimation_tpu_torch.flow import liu_warp
+    from depth_estimation_tpu_torch.flow import liu_irls, liu_warp
     sor_kernel.sor_redblack.launches = 0
     liu_warp.warp_update_noise.launches = liu_warp.resize.launches = 0
+    liu_irls.irls_planes.launches = 0
     u, v, warped = celiu.coarse2fine_flow_batched(im1, im2, **GT_SCHEDULE)
     torch.cuda.synchronize()
     launches = sor_kernel.sor_redblack.launches
     warps, resizes = (liu_warp.warp_update_noise.launches,
                       liu_warp.resize.launches)
+    irls = liu_irls.irls_planes.launches
     check(tuple(u.shape) == tuple(v.shape) == (GT_B, GT_H, GT_W)
           and tuple(warped.shape) == (GT_B, GT_H, GT_W, 3), "GT shapes")
     check(bool(torch.isfinite(u).all() and torch.isfinite(v).all()),
@@ -846,7 +886,7 @@ def phase_gt(dev, geom, report):
     med_u = u[:, 12:-12, 12:-12].flatten(1).median(dim=1).values
     med_v = v[:, 12:-12, 12:-12].flatten(1).median(dim=1).values
     print(f"GT liu config2: B={GT_B} {GT_H}x{GT_W}x3, {launches} B4 launches, "
-          f"{warps} liu warp and {resizes} resize launches, "
+          f"{warps} liu warp, {resizes} resize and {irls} IRLS launches, "
           f"median inner x-flow {med_u.min().item():.4f}..{med_u.max().item():.4f} "
           f"px (shift {GT_SHIFT}), y-flow {med_v.abs().max().item():.4f} px",
           flush=True)
@@ -855,6 +895,8 @@ def phase_gt(dev, geom, report):
     check(warps == GT_WARPS and resizes == GT_RESIZES, f"liu warp kernel "
           f"launched {warps} and {resizes} times, expected {GT_WARPS} and "
           f"{GT_RESIZES}")
+    check(irls == GT_IRLS, f"liu IRLS kernel launched {irls} times, "
+          f"expected {GT_IRLS}")
     check(bool(((med_u - GT_SHIFT).abs() < 0.25).all()
                and (med_v.abs() < 0.25).all()), f"GT shift not recovered: "
           f"{med_u.tolist()} {med_v.tolist()}")
@@ -877,7 +919,8 @@ def phase_gt(dev, geom, report):
           f"confidence on {conf_off:.2e}; median inner x-flow "
           f"{float(np.median(inner)):.1f} px (shift 3)", flush=True)
     report["gt"] = dict(liu_launches_sor=launches, liu_launches_warp=warps,
-                        liu_launches_resize=resizes, median_u=med_u.tolist(),
+                        liu_launches_resize=resizes, liu_launches_irls=irls,
+                        median_u=med_u.tolist(),
                         card_vs_cpu_u=su, card_vs_cpu_v=sv,
                         exhaustive_flip_share=flips,
                         exhaustive_conf_mismatch=conf_off)
@@ -887,7 +930,7 @@ def phase_gt(dev, geom, report):
     check(flips <= TOL_GT_FLIP and conf_off <= TOL_GT_FLIP,
           f"GT exhaustive card vs CPU: {flips} {conf_off}")
     check(abs(float(np.median(inner)) - 3) < 0.5, "GT exhaustive shift")
-    return launches, warps, (im1, im2)
+    return launches, warps, irls, (im1, im2)
 
 
 @torch.no_grad()
@@ -1415,10 +1458,12 @@ def phase_timing(dev, card, ests, frames, gt_frames, report):
           f"included), {k10:.3f} ms a call back to back, plain {p:.3f} ms; "
           f"plan {tuple(sor_kernel.sor_plan(GT_H, GT_W))} (cluster, rows, "
           f"mode)", flush=True)
-    # the liu warp kernel and its resize at the liu cell's finest shape
-    from depth_estimation_tpu_torch.flow import liu_warp
+    # the liu warp kernel, its resize and the IRLS kernel (a cold step) at
+    # the liu cell's finest shape
+    from depth_estimation_tpu_torch.flow import liu_irls, liu_warp
     ins = liu_warp_inputs(gen, LIU_B, LIU_H, LIU_W, LIU_C, dev)
     img = ins[1][..., :3].contiguous()
+    irls_in = liu_irls_inputs(gen, dev)[:5]
     for name, kern, plain, work in (
             ("liu_warp",
              lambda: liu_warp.warp_update_noise(*ins, noise=True),
@@ -1426,7 +1471,12 @@ def phase_timing(dev, card, ests, frames, gt_frames, report):
              liu_warp_work(ins[0])),
             ("liu_resize", lambda: liu_warp.resize(img, *LIU_NEXT),
              lambda: liu_warp.resize_plain(img, *LIU_NEXT),
-             resize_work(img, *LIU_NEXT))):
+             resize_work(img, *LIU_NEXT)),
+            ("liu_irls",
+             lambda: liu_irls.irls_planes(*irls_in, alpha=0.005),
+             lambda: celiu._irls_planes(*irls_in, alpha=0.005,
+                                        noise_model="lap"),
+             liu_irls_work(irls_in[0]))):
         one, one_plain = cuda_ms(kern), cuda_ms(plain)
         ten = cuda_ms(lambda: [kern() for _ in range(10)]) / 10
         ten_plain = cuda_ms(lambda: [plain() for _ in range(10)]) / 10
@@ -1478,6 +1528,7 @@ def phase_timing(dev, card, ests, frames, gt_frames, report):
         "sor_redblack": bound_ms(*sor_work(planes, 40)),
         "liu_warp": bound_ms(*liu_warp_work(ins[0])),
         "liu_resize": bound_ms(*resize_work(img, *LIU_NEXT)),
+        "liu_irls": bound_ms(*liu_irls_work(irls_in[0])),
     }
     for name, (b, by) in bounds.items():
         print(f"bound {name}: {b:.4f} ms ({by})", flush=True)
@@ -3922,8 +3973,8 @@ def main() -> int:
     geom, _, params, _ = mio.load_model(CAR_MODEL)
     counts, ests, frames = phase_slice(dev, geom, params, report)
     phase_card_vs_cpu(dev, geom, params, report)
-    counts["sor_redblack"], counts["liu_warp"], gt_frames = phase_gt(
-        dev, geom, report)
+    (counts["sor_redblack"], counts["liu_warp"], counts["liu_irls"],
+     gt_frames) = phase_gt(dev, geom, report)
     counts["match_fast"] = phase_matching_core(dev, card, report)
     counts["match_throughput"] = phase_throughput_core(dev, card, report)
     phase_multiscale(dev, card, report)
@@ -4064,7 +4115,14 @@ def main() -> int:
                resize_plain_ms=rows["liu_resize"][1],
                resize_ms_back_to_back=rows["liu_resize_back_to_back"][0],
                resize_bound_ms=bounds["liu_resize"][0])
-    kernels += [liu, p1, p2]
+    # the liu IRLS kernel (no TPU kernel: jnp code that XLA fuses), a cold
+    # step at the cell's finest level
+    irls = entry("liu_irls", "irls_planes", "liu_irls.cu",
+                 "none (depth_estimation_tpu/flow/celiu.py IRLS step: jnp)",
+                 "liu_irls")
+    irls.update(ms_back_to_back=rows["liu_irls_back_to_back"][0],
+                plain_ms_back_to_back=rows["liu_irls_back_to_back"][1])
+    kernels += [liu, irls, p1, p2]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} not launched on its path")
     report["kernels"] = kernels

@@ -129,6 +129,18 @@ def liu_warp_work(im1, update=True, noise=True):
     return nbytes, flops
 
 
+def liu_irls_work(im1f, warm=False):
+    """The IRLS kernel's (bytes, flops) for features im1f (B, H, W, C): both
+    features, u and v (and a warm start's du, dv) read and the nine planes
+    written once, 4 bytes each; 89 C + 47 FP32 operations a pixel (the
+    solve's count of an IRLS step, h100bench's ``liu_counts.IRLS_PER_PX`` =
+    492 at C = 5)."""
+    n_pix = im1f.numel() // im1f.shape[-1]
+    C = im1f.shape[-1]
+    return (4 * n_pix * (2 * C + (4 if warm else 2) + 9),
+            n_pix * (89 * C + 47))
+
+
 def resize_work(img, h, w):
     """Liu's resize's (bytes, flops): img read once, the (h, w) output
     written once; a pixel's two coordinate divisions and subtractions, the

@@ -17,20 +17,26 @@
     (``csrc/liu_warp.cu``), their plain twins (``warp_image``,
     ``laplacian_noise`` and the host-built resize) on a CPU tensor.
 
-The first inner IRLS step's planes (``_irls_planes``) replay on the card
-from a CUDA graph captured once per level shape (``GRAPHS``, the shared
-``utils/cuda_graph`` cache), bit for bit eager's; a warm start's steps run
-eagerly.
+An IRLS step's planes (``_irls_planes``) under the Laplacian noise model
+are one launch of the IRLS kernel on a CUDA tensor (``flow/liu_irls``,
+``csrc/liu_irls.cu``), bit for bit the torch code's, cold or warm start;
+the kernel takes the features of gray and colour images (3 and 5
+channels) and raises for others. Under the 'gmm' model the first inner
+step replays on the card from a CUDA graph captured once per level shape
+(``GRAPHS``, the shared ``utils/cuda_graph`` cache), bit for bit eager's,
+and a warm start's steps run eagerly. On a CPU tensor every step runs
+``_irls_planes``.
 
 Spans (``utils/timer.SPANS``, ranges only while a profiler runs):
 ``liu.pyramid`` (both pyramids, then each level's ``im2feature``),
 ``liu.irls`` (an IRLS step's derivatives, Phi and Psi, the coefficient
-planes and the Laplacian: a graph's replay on the card), ``liu.sor`` (the
-SOR solve), ``liu.warp`` (the flow's upsampling between levels, each outer
-step's update, warp and noise estimate, and the final warp). Counters
-(``utils/timer.COUNTERS``): ``liu.levels`` a level solved,
-``liu.irls_steps`` an outer IRLS step, and ``GRAPHS``'s
-``liu_graph.captures``, ``.replays``, ``.eager``.
+planes and the Laplacian: the IRLS kernel's launch, or a graph's replay,
+on the card), ``liu.sor`` (the SOR solve), ``liu.warp`` (the flow's
+upsampling between levels, each outer step's update, warp and noise
+estimate, and the final warp). Counters (``utils/timer.COUNTERS``):
+``liu.levels`` a level solved, ``liu.irls_steps`` an outer IRLS step, and
+``GRAPHS``'s ``liu_graph.captures``, ``.replays``, ``.eager``; the IRLS
+kernel's launches are ``liu_irls.irls_planes.launches``.
 
 Layout: images are (..., H, W, C) float32 in [0, 1], flow fields (..., H,
 W); leading dims are independent pairs solved together. vx = x (column)
@@ -56,11 +62,12 @@ import torch.nn.functional as F
 from ..utils.cuda_graph import GraphCache
 from ..utils.device import as_f32
 from ..utils.timer import count, profiled_span
-from . import liu_warp
+from . import liu_irls, liu_warp
 from .sor_kernel import sor_redblack
 
-# the IRLS planes' graphs: the 8 levels of the trainer's schedule at the
-# loader's two batch sizes (a full LIU_CHUNK and the last chunk) a device
+# the IRLS planes' graphs under the 'gmm' noise model (the 'lap' model's
+# steps are the IRLS kernel's on the card): a solve's levels at two batch
+# sizes a device
 GRAPHS = GraphCache("liu_graph", max_graphs=16)
 
 # ---------------------------------------------------------------------------
@@ -537,9 +544,12 @@ def smooth_flow_sor(im1f, im2f, warp, u, v, lap_para, alpha,
     images/warp (..., H, W, C), flows (..., H, W), lap_para (..., C).
     Returns (u, v, warp, lap_para, gm).
 
-    The first inner step's planes (``_irls_planes``) replay from a CUDA
-    graph where the input allows (``GRAPHS``); a warm start's run
-    eagerly. The SOR solve from a zero start (the first inner step, and
+    An IRLS step's planes go through the IRLS kernel
+    (``liu_irls.irls_planes``, which raises for features of other than 3
+    or 5 channels) on a CUDA tensor under the 'lap' model, cold or warm
+    start; under 'gmm' the first inner step's (``_irls_planes``) replay
+    from a CUDA graph where the input allows (``GRAPHS``) and a warm
+    start's run eagerly; on a CPU tensor every step runs ``_irls_planes``. The SOR solve from a zero start (the first inner step, and
     every step of the reference's schedules, which use n_inner = 1) goes
     through ``sor_redblack``: kernel B4 for a CUDA tensor, ``sor_plain`` for
     a CPU tensor. A warm start (n_inner > 1) runs ``sor_plain``. Each
@@ -547,13 +557,18 @@ def smooth_flow_sor(im1f, im2f, warp, u, v, lap_para, alpha,
     are one ``liu_warp.warp_update_noise`` call; bicubic warps and the
     'gmm' estimate run in torch."""
     omega = 1.8
+    kernel = noise_model == "lap" and im1f.is_cuda
 
     for _ in range(n_outer):
         count("liu.irls_steps")
         for hh in range(n_inner):
             with profiled_span("liu.irls"):
                 tensors = (im1f, warp, u, v, lap_para, *(gm or ()))
-                if hh == 0:
+                if kernel:
+                    warm = dict(du=du, dv=dv) if hh else {}
+                    planes = liu_irls.irls_planes(*tensors, alpha=alpha,
+                                                  **warm)
+                elif hh == 0:
                     planes = GRAPHS.replay(
                         _irls_planes, tensors, alpha=alpha,
                         noise_model=noise_model)

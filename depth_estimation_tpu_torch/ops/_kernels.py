@@ -74,6 +74,11 @@ SIGNATURES = {
         # img, out, B, H, W, C, h, w, rx, ry, scale, px_per_block, stream
         "liu_resize_launch": [_P, _P] + [_I] * 6 + [_F] * 3 + [_I, _P],
     },
+    "liu_irls": {
+        # im1f, warp, u, v, du, dv, lap_para, w_w, w_e, w_n, w_s, denom_u,
+        # denom_v, b1, b2, imdxy, consts (host), n_consts, B, H, W, C, stream
+        "liu_irls_launch": [_P] * 17 + [_I] * 5 + [_P],
+    },
     "vpu_peak": {
         # x, out, n, n_iter, variant, threads, blocks_per_sm, stream
         "vpu_peak_launch": [_P, _P] + [_I] * 5 + [_P],

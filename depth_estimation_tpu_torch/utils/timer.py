@@ -31,8 +31,9 @@ steps Ce Liu's solve made (``liu.levels``, ``liu.irls_steps``;
 ``flow/celiu``), and how often each cache of ``utils/cuda_graph``
 captured a call into a CUDA graph, replayed one, or ran the call eagerly
 (``<name>.captures``, ``<name>.replays``, ``<name>.eager``): RANSAC's QR
-as ``qr_graph`` (``geometry3d/qr_graph``) and an IRLS step's planes as
-``liu_graph`` (``flow/celiu``); and the radial estimator's pairs, the
+as ``qr_graph`` (``geometry3d/qr_graph``) and an IRLS step's planes off
+the IRLS kernel's route ('gmm') as ``liu_graph`` (``flow/celiu``); and
+the radial estimator's pairs, the
 pairs its gate rejected and the epipoles it kept from the step before
 (``radial.pairs``, ``radial.bad_pairs``, ``radial.epipole_kept``;
 ``api_radial``). A count that lives on the card goes through
@@ -134,7 +135,8 @@ SPANS = (
     Span("liu.pyramid", "liu solve: both Gaussian pyramids, each level's "
          "im2feature", BREAKDOWN),
     Span("liu.irls", "liu solve: an IRLS step's derivatives, Phi, Psi, "
-         "coefficient planes, Laplacian", "irls_idle_ms.liu"),
+         "coefficient planes, Laplacian (the IRLS kernel on the card)",
+         "irls_idle_ms.liu"),
     Span("liu.sor", "liu solve: the red-black SOR (kernel B4 on the card)",
          BREAKDOWN),
     Span("liu.warp", "liu solve: upsampling between levels, each outer "

@@ -38,9 +38,10 @@ contents (the QR at the online program's shape, at B=1, S=64 and at an odd
 B), capture each shape up to the process cache's bound and run eagerly
 past it, serve threads sharing a cache, and stay eager inside a caller's
 capture and for a new key under a profiler. The QR in 32 slices equals it
-in one chain; the IRLS planes equal eager's over whole solves (180x320,
-B=2, the trainer's schedule: a capture a level, 68 replays a solve; gmm
-with bicubic warps).
+in one chain; the IRLS planes equal eager's over whole solves (gmm with
+bicubic warps: a capture a level), and the 'lap' solve through the IRLS
+kernel (``flow/liu_irls``) equals the eager solve (180x320, B=2 and 64,
+the trainer's schedule: 68 kernel launches a solve, no graph).
 Every test skips without a CUDA card. This file imports no jax, so it also runs where
 jax is absent:
 
@@ -903,7 +904,7 @@ def test_liu_ground_truth_of_a_pair_launches_b4(dev):
 def test_liu_flow_batched_at_the_cells_shapes_equals_the_reference(dev):
     """One batched liu solve at the benchmark cell's shapes (B=64, 180x320,
     the trainer's schedule: 8 levels, 68 IRLS steps) launches B4 once an
-    IRLS step and equals the plain reference
+    IRLS step, as it does the IRLS kernel, and equals the plain reference
     (``h100bench/reference/liu.py``) on the card bit for bit."""
     from depth_estimation_tpu_torch.data import groundtruth
     from depth_estimation_tpu_torch.flow import sor_kernel
@@ -915,11 +916,14 @@ def test_liu_flow_batched_at_the_cells_shapes_equals_the_reference(dev):
     im1 = base[:, 1:181, 3:323].contiguous()
     im2 = base[:, :180, :320].contiguous()
     from depth_estimation_tpu_torch.flow import liu_warp
+    from depth_estimation_tpu_torch.flow import liu_irls
     n0 = sor_kernel.sor_redblack.launches
     w0, r0 = liu_warp.warp_update_noise.launches, liu_warp.resize.launches
+    i0 = liu_irls.irls_planes.launches
     vx, vy = groundtruth.liu_flow_batched(im1, im2)
     torch.cuda.synchronize()
     assert sor_kernel.sor_redblack.launches == n0 + 68
+    assert liu_irls.irls_planes.launches == i0 + 68
     # a warp an IRLS step, one between each two levels and the final one;
     # the pyramids' 2 x 7 resizes and the flow's 2 x 7 upsamplings
     assert liu_warp.warp_update_noise.launches == w0 + 76
@@ -1330,21 +1334,28 @@ def _eager_liu_solve(monkeypatch, pair, **kw):
         return _liu_solve(pair, **kw)
 
 
-def test_liu_graph_solve_equals_eager_over_solves(dev, monkeypatch):
-    """Whole solves at 180x320, B=2, the trainer's schedule: graph and
-    eager bit-equal over 3 solves with new contents; a level's capture on
-    the first, 68 replays each solve."""
+@pytest.mark.parametrize("B", [2, 64])
+def test_liu_graph_solve_equals_eager_over_solves(dev, monkeypatch, B):
+    """Whole solves at 180x320, the trainer's schedule ('lap'), B=2 and
+    the liu cell's B=64: the IRLS kernel's solve and the eager solve (every
+    IRLS step in ``_irls_planes``) bit-equal over 3 solves with new
+    contents; 68 kernel launches each solve, and no IRLS graph captured or
+    replayed."""
+    from depth_estimation_tpu_torch.flow import celiu, liu_irls
     _fresh_liu_graphs(monkeypatch)
-    pairs = [_liu_pair(dev, 2, 180, 320, 40 + s) for s in range(3)]
-    e0 = _graph_routes("liu_graph")[2]
-    wants = [_eager_liu_solve(monkeypatch, p) for p in pairs]
-    assert _graph_routes("liu_graph")[2] == e0 + 3 * 68
-    c0, r0, e0 = _graph_routes("liu_graph")
+    pairs = [_liu_pair(dev, B, 180, 320, 40 + s) for s in range(3)]
+    with monkeypatch.context() as m:
+        m.setattr(liu_irls, "irls_planes", lambda *a, **k: celiu._irls_planes(
+            *a, noise_model="lap", **k))
+        wants = [_liu_solve(p) for p in pairs]
+    routes = _graph_routes("liu_graph")
     for i, (pair, want) in enumerate(zip(pairs, wants)):
+        n0 = liu_irls.irls_planes.launches
         got = _liu_solve(pair)
         for a, b in zip(got, want):
             assert torch.equal(a, b), float((a - b).abs().max())
-        assert _graph_routes("liu_graph") == [c0 + 8, r0 + 68 * (i + 1), e0]
+        assert liu_irls.irls_planes.launches == n0 + 68
+        assert _graph_routes("liu_graph") == routes
     assert 0.5 < float(got[0].abs().mean()) < 5.0
 
 
