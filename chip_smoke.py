@@ -20,7 +20,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      main paths (ROADMAP C24) at B=2, 12x40 outputs: B1 in conf and marg
      mode, f32 and bf16, at windows 17x4, 24x24, 32x32 and 64x64 (K=10)
      and at K 33 and 64 (16x16); B2 (f32, bf16) and B5 at 64x64 (K 1, 32),
-     48x48 (K 17), 3x500 and 500x3 (K 10, 32) and K 33 and 64 (16x16);
+     48x48 (K 17), 3x500 and 500x3 (K 10, 32), K 33 and 64 (16x16) and
+     K 32 on 17x17 (the version2 net's);
   4. the online program end to end at the car_model's full width (ARDRONE
      640x480 uint8 frames of a forward camera step -> 320x180, trunk
      (3,5,5,8),(8,12,12,10), 16x16 window), B=128, in fast mode, 'warp'
@@ -49,7 +50,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      warped to 200x200 polar images, hWin 15) through flow_batch at B=64,
      one pair card vs CPU, and one cartesian frame through
      cartesian2polar, the net and flow2depth; the version2 net (180x320,
-     17x17x32 trunk, 17x17 window), one pair card vs CPU;
+     17x17x32 trunk, 17x17 window), one pair's costs card vs CPU, then
+     flow_batch at B=64 (timed) with B2's launches read around it and B2
+     (f32, K=32, 17x17) held against its twin on the same cropped
+     features;
  10. timing: CUDA events after warm-up, median of 5; B1 in bf16 (the
      online program's fast mode) and f32; B3 in f32 and bf16 beside
      torch.nn.functional.grid_sample on the same inputs (its library
@@ -554,7 +558,7 @@ C24_FUSED = [(17, 4, 10), (24, 24, 10), (32, 32, 10), (64, 64, 10),
              (16, 16, 33), (16, 16, 64)]
 C24_DECOMPOSED = [(64, 64, 1), (64, 64, 32), (48, 48, 17), (3, 500, 10),
                   (3, 500, 32), (500, 3, 10), (500, 3, 32), (16, 16, 33),
-                  (16, 16, 64)]
+                  (16, 16, 64), (17, 17, 32)]
 
 
 def phase_general_shapes(dev, report):
@@ -1168,11 +1172,23 @@ def phase_radial(dev, card, report):
           f"config4 card vs CPU: {agree} {rel}")
 
 
+V2_B = 64                # the version2 cell's pairs a step
+V2_TIE = 1e-4            # |logit gap| under which two cells' WTA may swap
+
+
 @torch.no_grad()
-def phase_version2(dev, report):
+def phase_version2(dev, card, report):
     """The version2 network at its defaults (180x320, contrastive
-    normalization, 17x17x32 trunk, 17x17 window): one pair card vs CPU."""
+    normalization, 17x17x32 trunk, 17x17 window): one pair's costs card vs
+    CPU; flow_batch at B=64 (timed), B2 launched once in it, and B2 held
+    against its twin on the same cropped features (WTA swaps only at
+    near-ties of the logit). Returns B2's launches in one flow_batch, its
+    largest error and its time alone at that shape."""
+    from depth_estimation_tpu_torch.models.flow import crop_features_center
     from depth_estimation_tpu_torch.models.version2 import V2Network
+    from depth_estimation_tpu_torch.ops import matching
+    from depth_estimation_tpu_torch.ops.normalization import (
+        spatial_contrastive_normalization)
     net = V2Network(device=dev).init(torch.Generator().manual_seed(50))
     g = net.geometry
     s1, s2 = working_frames(8, 1, g.hImg, g.wImg, dev)
@@ -1190,9 +1206,65 @@ def phase_version2(dev, report):
           f"costs {tuple(costs.shape)} card vs CPU max diff / max cost "
           f"{rel:.2e} (elementwise {rel_each:.2e}), WTA equal on {agree:.6f}",
           flush=True)
-    report["version2"] = dict(card_vs_cpu_rel=rel, elementwise_rel=rel_each,
-                              wta_equal=agree)
     check(rel <= TOL_COST_REL, f"version2 card vs CPU: {rel}")
+    del costs, ccosts, d
+
+    # flow_batch at the cell's shape
+    t1, t2 = working_frames(9, V2_B, g.hImg, g.wImg, dev)
+    matching.match_flow_fast.launches = 0
+    out = net.flow_batch(t1, t2)
+    torch.cuda.synchronize()
+    launches = matching.match_flow_fast.launches
+    check(launches == 1, f"B2 launched {launches} times in one flow_batch")
+    n = spatial_contrastive_normalization(torch.cat((t1, t2)),
+                                          net.datap.normalization_k)
+    f = net.filter(n)
+    f1, f2 = crop_features_center(g, f[:V2_B]), f[V2_B:]
+    shape = (V2_B,) + tuple(f1.shape[1:3])
+    check(all(tuple(o.shape) == shape for o in out)
+          and bool(all(torch.isfinite(o).all() for o in out[1:])),
+          f"version2 flow_batch outputs {[tuple(o.shape) for o in out]}")
+    got = matching.match_flow_fast(f1, f2, g.maxh, g.maxw)
+    same = all(bool(torch.equal(a, b)) for a, b in zip(out, got))
+    flips, near, errs = 0, True, [0.0, 0.0, 0.0]
+    for a in range(0, V2_B, 8):
+        ref = matching.match_flow_fast_plain(f1[a:a + 8], f2[a:a + 8],
+                                             g.maxh, g.maxw)
+        flip = got[0][a:a + 8] != ref[0]
+        flips += int(flip.sum())
+        if flip.any():
+            top2 = torch.topk(-matching.match_ssd(f1[a:a + 8], f2[a:a + 8],
+                                                  g.maxh, g.maxw), 2,
+                              dim=-1).values
+            near &= bool(((top2[..., 0] - top2[..., 1])[flip] < V2_TIE).all())
+        errs = [max(e, (x[a:a + 8] - y).abs().max().item())
+                for e, x, y in zip(errs, got[1:], ref[1:])]
+    flip_share = flips / got[0].numel()
+    ms_batch = cuda_ms(lambda: net.flow_batch(t1, t2))
+    ms_b2 = cuda_ms(lambda: matching.match_flow_fast(f1, f2, g.maxh, g.maxw))
+    p2 = matching.match_plan(g.maxh, g.maxw, f1.shape[-1])
+    print(f"version2 flow_batch B={V2_B}: {launches} B2 launch; B2 f32 "
+          f"{g.maxh}x{g.maxw} K={f1.shape[-1]} (bands {p2.bh}x{p2.bw}, tile "
+          f"{p2.tile[0]}x{p2.tile[1]}) vs its twin on the same features: idx "
+          f"mismatch {flip_share:.2e} (all at logit gaps < {V2_TIE}: {near}), "
+          f"max err ey {errs[0]:.2e} ex {errs[1]:.2e} pmax {errs[2]:.2e}; "
+          f"flow_batch equals B2 on those features: {same}", flush=True)
+    print(f"[{card}] version2 flow_batch: B={V2_B} {ms_batch:.2f} ms = "
+          f"{V2_B / (ms_batch / 1e3):.1f} pairs/s; B2 alone {ms_b2:.3f} ms",
+          flush=True)
+    report["version2"] = dict(card_vs_cpu_rel=rel, elementwise_rel=rel_each,
+                              wta_equal=agree, launches_match_fast=launches,
+                              b2_idx_mismatch=flip_share,
+                              b2_flips_near_ties=near,
+                              b2_max_abs_err=max(errs),
+                              flow_batch_equals_b2=same,
+                              flow_batch_ms=ms_batch, b2_ms=ms_b2)
+    check(near and flip_share <= TOL_FLIP,
+          f"version2 B2 vs twin: idx mismatch {flip_share}, near ties {near}")
+    check(max(errs[:2]) <= TOL_FLOW_PX and errs[2] <= TOL_PROB,
+          f"version2 B2 vs twin: errors {errs}")
+    check(same, "version2 flow_batch differs from B2 on its own features")
+    return launches, max(errs), ms_b2
 
 
 def kernel_label(mangled):
@@ -3979,7 +4051,7 @@ def main() -> int:
     counts["match_throughput"] = phase_throughput_core(dev, card, report)
     phase_multiscale(dev, card, report)
     phase_radial(dev, card, report)
-    phase_version2(dev, report)
+    v2_launches, v2_err, v2_ms = phase_version2(dev, card, report)
     rows, bounds, b4_solve, floors = phase_timing(dev, card, ests, frames,
                                                   gt_frames, report)
     training = phase_training(dev, card, report)
@@ -4034,6 +4106,11 @@ def main() -> int:
             next(k for k in kernels if k["name"] == name).update(
                 issue_floor_ms=floors[key]["ms"],
                 sass_per_cell=floors[key]["per_cell"])
+    # B2 inside the version2 net's flow_batch at its cell's shape (B=64,
+    # 148x288, K=32, 17x17 window, f32)
+    next(k for k in kernels if k["name"] == "match_flow_fast").update(
+        launches_version2_phase=v2_launches, max_abs_err_version2=v2_err,
+        ms_version2=v2_ms)
     # the C24 shapes' largest errors beside the main path's
     for name, key in (("match_flow_fused", "match_fused"),
                       ("match_flow_fast", "match_fast"),

@@ -2,7 +2,13 @@
 contrastive normalization -> a single 17x17 conv (32 features, shared by
 both frames) -> a 17x17 SSD match; the trainer head is LogSoftMax(-cost).
 The reference frame's features are cropped by the window's asymmetric
-halves so that matching is centered (``crop_features_center``)."""
+halves so that matching is centered (``crop_features_center``).
+
+``flow_batch`` is the throughput path: B pairs normalised as one batch of
+2B frames, one trunk call, and the matching core's fused contract (idx,
+ey, ex, pmax) from ``ops/matching.match_flow_fast`` (kernel B2 on the
+card), in the program's spans ``v2.norm``, ``v2.trunk`` and ``v2.match``;
+the pairs go to the counter ``v2.pairs``."""
 
 from __future__ import annotations
 
@@ -17,6 +23,7 @@ from ..ops import matching
 from ..ops.normalization import spatial_contrastive_normalization
 from ..utils.device import resolve
 from ..utils.precision import full_f32
+from ..utils.timer import count, profiled_span
 from .filters import ConvFilter, init_params
 from .flow import crop_features_center
 
@@ -70,3 +77,24 @@ class V2Network(nn.Module):
     def log_scores(self, img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
         """Trainer head: log_softmax(-cost) over the window."""
         return torch.log_softmax(-self.costs(img1, img2), dim=-1)
+
+    @full_f32()
+    def flow_batch(self, img1: torch.Tensor, img2: torch.Tensor):
+        """Throughput path: (B, hImg, wImg, 3) f32 pairs -> the matching
+        core's (idx int32, ey, ex, pmax), each (B, H'', W''). Both frames
+        are normalised and go through the trunk as one batch of 2B; the
+        match is ``match_flow_fast`` on f32 features (kernel B2 on CUDA
+        tensors, its plain twin on the CPU). Reads nothing back to the
+        host."""
+        g = self.geometry
+        B = img1.shape[0]
+        with profiled_span("v2.norm"):
+            n = spatial_contrastive_normalization(torch.cat((img1, img2)),
+                                                  self.datap.normalization_k)
+        with profiled_span("v2.trunk"):
+            f = self.filter(n)
+        with profiled_span("v2.match"):
+            out = matching.match_flow_fast(crop_features_center(g, f[:B]),
+                                           f[B:], g.maxh, g.maxw)
+        count("v2.pairs", B)
+        return out

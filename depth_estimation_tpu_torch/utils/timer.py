@@ -9,8 +9,9 @@ The program's own spans are declared once, in ``SPANS``: the online
 step's three stages (``online.*``, ``api_batched``), ego-motion's five
 (``ego.*``, ``geometry3d/egomotion``), the multiscale decode's two
 (``decode.*``, ``models/multiscale``), Ce Liu's solve's four
-(``liu.*``, ``flow/celiu``) and the radial estimator's four
-(``radial.*``, ``api_radial`` and ``models/radial``). Each records only while a ``torch.profiler``
+(``liu.*``, ``flow/celiu``), the radial estimator's four
+(``radial.*``, ``api_radial`` and ``models/radial``) and the version2
+net's batched flow's three (``v2.*``, ``models/version2``). Each records only while a ``torch.profiler``
 runs, and then as a ``record_function`` range stamped
 on the profiler's clock, the clock of its CUDA kernel records; otherwise,
 and while ``torch.compile`` or ``torch.export`` traces, a span is one
@@ -36,7 +37,8 @@ the IRLS kernel's route ('gmm') as ``liu_graph`` (``flow/celiu``); and
 the radial estimator's pairs, the
 pairs its gate rejected and the epipoles it kept from the step before
 (``radial.pairs``, ``radial.bad_pairs``, ``radial.epipole_kept``;
-``api_radial``). A count that lives on the card goes through
+``api_radial``); the pairs the version2 net's batched flow matched
+(``v2.pairs``; ``models/version2``). A count that lives on the card goes through
 ``count_on_device``: copied to the host behind the card's work and added
 once the copy has landed, so that the step that counts never waits;
 ``fold_counts()`` waits for every copy, for a reader of ``COUNTERS``.
@@ -149,6 +151,12 @@ SPANS = (
          "SSD and the WTA", "net_device_ms.radial"),
     Span("radial.depth", "radial estimator: the P2C grid, the warp back, "
          "flow2depth", "polar_device_ms.radial"),
+    Span("v2.norm", "version2 net: both frames' contrastive normalisation",
+         "norm_device_ms.v2"),
+    Span("v2.trunk", "version2 net: the 17x17 conv on both frames",
+         BREAKDOWN),
+    Span("v2.match", "version2 net: the crop and the matching core (B2 on "
+         "the card)", BREAKDOWN),
 )
 
 COUNTERS: Counter = Counter()

@@ -7,6 +7,7 @@ bands of 0 and 1, taps on the image border, f32, bf16 and f16 storage
 (and the refusal of any other type), B3's rows cut inside a CTA's
 segment at C = 1 to 17, 1x1 and odd SOR images, 0, 1 and 40 SOR
 iterations, leading batch dims, B2 and B5 at K = 1 to 100, 1x1 to 64x64,
+B2 at the version2 cell's K = 32 on a 17x17 window,
 3x500 and 500x3 windows (walked in bands where the halo does not fit),
 batches of 1 and 130, widths that cut a thread's pixel block or a tile,
 every compiled pixel blocking, and launch plans the kernels refuse; B1's
@@ -636,6 +637,18 @@ def test_match_fast_kernel_matches_plain(dev, maxh, maxw, K, dt):
     ref = matching.match_flow_fast_plain(f1, f2, maxh, maxw, dt)
     torch.cuda.synchronize()
     _check_decomposed(got, ref, f1, f2, maxh, maxw, dt)
+
+
+def test_match_fast_kernel_at_the_version2_shape_matches_plain(dev):
+    # the version2 cell's match: K = 32 on a 17x17 window, whose halo fills
+    # one block's shared memory on a 16x32 tile; 148 rows cut the tile
+    f1, f2 = _features(dev, 148, 288, 32, 17, 17, seed=1717)
+    n0 = matching.match_flow_fast.launches
+    got = matching.match_flow_fast(f1, f2, 17, 17)
+    assert matching.match_flow_fast.launches == n0 + 1
+    ref = matching.match_flow_fast_plain(f1, f2, 17, 17)
+    torch.cuda.synchronize()
+    _check_decomposed(got, ref, f1, f2, 17, 17)
 
 
 # W cut inside a thread's pixel block, inside a tile and below one tile; H

@@ -1,9 +1,9 @@
 """The program's own spans (``utils/timer.SPANS``): each is opened where the
 table says and nowhere else, under no name the benchmark's wrappers use;
 under a profiler an online step and a staged multiscale decode record
-every one, nested as declared, as do a liu solve and a radial estimator
+every one, nested as declared, as do a liu solve, a radial estimator
 step (whose ego-motion opens the ``ego.*`` spans again, inside
-``radial.ego``); without a profiler, and while torch.export traces, a span
+``radial.ego``) and the version2 net's batched flow; without a profiler, and while torch.export traces, a span
 enters no ``record_function``."""
 
 import dataclasses
@@ -19,7 +19,7 @@ from depth_estimation_tpu_torch import api_batched, api_radial
 from depth_estimation_tpu_torch.flow import celiu
 from depth_estimation_tpu_torch.geometry import Geometry
 from depth_estimation_tpu_torch.geometry3d import calibration
-from depth_estimation_tpu_torch.models import multiscale, radial
+from depth_estimation_tpu_torch.models import multiscale, radial, version2
 from depth_estimation_tpu_torch.utils import timer
 
 PACKAGE = Path(api_batched.__file__).resolve().parent
@@ -48,7 +48,10 @@ WHERE = {"online.prep": ("api_batched.py", None),
          "radial.ego": ("api_radial.py", None),
          "radial.polar": ("api_radial.py", None),
          "radial.net": ("models/radial.py", None),
-         "radial.depth": ("api_radial.py", None)}
+         "radial.depth": ("api_radial.py", None),
+         "v2.norm": ("models/version2.py", None),
+         "v2.trunk": ("models/version2.py", None),
+         "v2.match": ("models/version2.py", None)}
 # the liu solve below: 3 levels of 1 + k outer steps (k = 0, 1, 2)
 LIU_KW = dict(alpha=0.005, ratio=0.75, min_width=13, n_outer=1, n_inner=1,
               n_sor=2)
@@ -135,6 +138,17 @@ def _radial():
     return est, frames[1]
 
 
+def _v2():
+    """The version2 net at 24x32 with a 5x5 trunk of 4 features and a 5x5
+    window, and one pair of random frames."""
+    datap = version2.V2Params(wImg=32, hImg=24, layers=((3, 5, 5, 4),),
+                              hWin=5, wWin=5)
+    net = version2.V2Network(datap, device="cpu").init(
+        torch.Generator().manual_seed(6))
+    gen = torch.Generator().manual_seed(7)
+    return net, [torch.rand((1, 24, 32, 3), generator=gen) for _ in range(2)]
+
+
 def _liu_pair():
     gen = torch.Generator().manual_seed(9)
     base = torch.rand((1, 3, 8, 12), generator=gen)
@@ -146,7 +160,7 @@ def _liu_pair():
 @pytest.fixture(scope="module")
 def programs():
     torch.manual_seed(0)
-    return _estimator(), _decoder(), _liu_pair(), _radial()
+    return _estimator(), _decoder(), _liu_pair(), _radial(), _v2()
 
 
 def _ranges(log_dir):
@@ -160,15 +174,18 @@ def _ranges(log_dir):
 
 
 def test_a_step_and_a_decode_record_every_span_nested(programs, tmp_path):
-    (est, frames), (model, imgs), pair, (rest, rframes) = programs
+    (est, frames), (model, imgs), pair, (rest, rframes), (v2, vimgs) = \
+        programs
     before = dict(timer.COUNTERS)
     with timer.capture_trace(str(tmp_path)) as started:
         est.next_frames(frames)
         model.decode_full_staged(*imgs)
         celiu.coarse2fine_flow_batched(*pair, **LIU_KW)
         rest.next_frames(rframes)
+        v2.flow_batch(*vimgs)
     assert started
-    for name, n in (("liu.levels", LIU_LEVELS), ("liu.irls_steps", LIU_STEPS)):
+    for name, n in (("liu.levels", LIU_LEVELS), ("liu.irls_steps", LIU_STEPS),
+                    ("v2.pairs", 1)):
         assert timer.COUNTERS[name] - before.get(name, 0) == n
     ranges = _ranges(tmp_path)
     for name, (_, parents) in WHERE.items():
@@ -184,7 +201,7 @@ def test_a_step_and_a_decode_record_every_span_nested(programs, tmp_path):
     for stages in (("online.prep", "online.ego", "online.flow"),
                    ("decode.cost", "decode.select"),
                    ("radial.ego", "radial.polar", "radial.net",
-                    "radial.depth")):
+                    "radial.depth"), ("v2.norm", "v2.trunk", "v2.match")):
         spans = [ranges[s][0] for s in stages]
         assert all(x[2] <= y[1] for x, y in zip(spans, spans[1:])), spans
 
@@ -195,12 +212,14 @@ def _no_range(*args, **kwargs):
 
 def test_without_a_profiler_a_span_enters_no_range(programs, monkeypatch,
                                                    tmp_path):
-    (est, frames), (model, imgs), pair, (rest, rframes) = programs
+    (est, frames), (model, imgs), pair, (rest, rframes), (v2, vimgs) = \
+        programs
     monkeypatch.setattr(torch.profiler, "record_function", _no_range)
     est.next_frames(frames)
     model.decode_full_staged(*imgs)
     celiu.coarse2fine_flow_batched(*pair, **LIU_KW)
     rest.next_frames(rframes)
+    v2.flow_batch(*vimgs)
     # the patch is live: under a profiler the same span raises
     with timer.capture_trace(str(tmp_path)):
         with pytest.raises(AssertionError, match="record_function"):
@@ -214,7 +233,7 @@ def test_without_a_profiler_a_span_enters_no_range(programs, monkeypatch,
 
 def test_an_export_under_a_profiler_holds_no_profiler_node(programs,
                                                            tmp_path):
-    _, (model, imgs), _, _ = programs
+    _, (model, imgs), _, _, _ = programs
 
     class Decode(torch.nn.Module):
         def forward(self, a, b):
