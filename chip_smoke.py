@@ -51,7 +51,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      one pair card vs CPU, and one cartesian frame through
      cartesian2polar, the net and flow2depth; the version2 net (180x320,
      17x17x32 trunk, 17x17 window), one pair's costs card vs CPU, then
-     flow_batch at B=64 (timed) with B2's launches read around it and B2
+     flow_batch at B=64 (timed) with B2's and N1's launches read around
+     it, N1 (the contrastive normalisation kernel) held bit for bit to its
+     twin on the 128 frames and timed beside its bytes bounds, and B2
      (f32, K=32, 17x17) held against its twin on the same cropped
      features;
  10. timing: CUDA events after warm-up, median of 5; B1 in bf16 (the
@@ -1180,15 +1182,17 @@ V2_TIE = 1e-4            # |logit gap| under which two cells' WTA may swap
 def phase_version2(dev, card, report):
     """The version2 network at its defaults (180x320, contrastive
     normalization, 17x17x32 trunk, 17x17 window): one pair's costs card vs
-    CPU; flow_batch at B=64 (timed), B2 launched once in it, and B2 held
-    against its twin on the same cropped features (WTA swaps only at
-    near-ties of the logit). Returns B2's launches in one flow_batch, its
-    largest error and its time alone at that shape."""
+    CPU; flow_batch at B=64 (timed), B2 and the normalisation kernel N1
+    launched once each in it, N1 held bit for bit to its twin on the 128
+    frames and timed (one call, back to back) beside its bytes bounds and
+    the twin, and B2 held against its twin on the same cropped features
+    (WTA swaps only at near-ties of the logit). Returns B2's launches in
+    one flow_batch, its largest error and its time alone at that shape, and
+    N1's row of the kernels line."""
     from depth_estimation_tpu_torch.models.flow import crop_features_center
     from depth_estimation_tpu_torch.models.version2 import V2Network
     from depth_estimation_tpu_torch.ops import matching
-    from depth_estimation_tpu_torch.ops.normalization import (
-        spatial_contrastive_normalization)
+    from depth_estimation_tpu_torch.ops import normalization as norm
     net = V2Network(device=dev).init(torch.Generator().manual_seed(50))
     g = net.geometry
     s1, s2 = working_frames(8, 1, g.hImg, g.wImg, dev)
@@ -1212,12 +1216,43 @@ def phase_version2(dev, card, report):
     # flow_batch at the cell's shape
     t1, t2 = working_frames(9, V2_B, g.hImg, g.wImg, dev)
     matching.match_flow_fast.launches = 0
+    norm.contrastive_norm.launches = 0
     out = net.flow_batch(t1, t2)
     torch.cuda.synchronize()
     launches = matching.match_flow_fast.launches
+    n1_launches = norm.contrastive_norm.launches
     check(launches == 1, f"B2 launched {launches} times in one flow_batch")
-    n = spatial_contrastive_normalization(torch.cat((t1, t2)),
-                                          net.datap.normalization_k)
+    check(n1_launches == 1,
+          f"N1 launched {n1_launches} times in one flow_batch")
+    k = net.datap.normalization_k
+    frames = torch.cat((t1, t2))
+    n = norm.spatial_contrastive_normalization(frames, k)
+    n_twin = norm.spatial_contrastive_normalization_plain(frames, k)
+    n1_equal = bool(torch.equal(n, n_twin))
+    n1_err = float((n - n_twin).abs().max())
+    del n_twin
+    check(n1_equal, "N1 differs from its twin on the flow_batch's frames")
+    ms_n1 = cuda_ms(lambda: norm.spatial_contrastive_normalization(frames, k))
+    ms_n1_b2b = cuda_ms(lambda: [norm.spatial_contrastive_normalization(
+        frames, k) for _ in range(20)], reps=3) / 20
+    ms_n1_twin = cuda_ms(
+        lambda: norm.spatial_contrastive_normalization_plain(frames, k),
+        reps=3)
+    # the bounds, bytes either way (4 passes of k taps, a multiply and an
+    # add a tap and channel): the frames read and the output written once;
+    # N1's own, the frames read twice and the local mean and std written,
+    # read back and reduced
+    n_px = frames.numel() // frames.shape[-1]
+    flops = 4 * 2 * k * frames.numel()
+    bound_io, bound_by = bound_ms(2 * frames.numel() * 4, flops)
+    bound_stats = bound_ms((3 * frames.numel() + 5 * n_px) * 4, flops)[0]
+    print(f"[{card}] version2 N1 (contrastive_norm.cu) on {tuple(frames.shape)}, "
+          f"k={k}: {n1_launches} call in flow_batch, bit for bit the twin: "
+          f"{n1_equal}; {ms_n1:.3f} ms one call, {ms_n1_b2b:.3f} ms a call "
+          f"back to back; bytes bound {bound_io:.3f} ms (frames in, output "
+          f"out), {bound_stats:.3f} ms (N1's reads and writes); twin "
+          f"{ms_n1_twin:.2f} ms", flush=True)
+    del frames
     f = net.filter(n)
     f1, f2 = crop_features_center(g, f[:V2_B]), f[V2_B:]
     shape = (V2_B,) + tuple(f1.shape[1:3])
@@ -1258,13 +1293,24 @@ def phase_version2(dev, card, report):
                               b2_flips_near_ties=near,
                               b2_max_abs_err=max(errs),
                               flow_batch_equals_b2=same,
-                              flow_batch_ms=ms_batch, b2_ms=ms_b2)
+                              flow_batch_ms=ms_batch, b2_ms=ms_b2,
+                              n1_launches=n1_launches, n1_equal=n1_equal,
+                              n1_ms=ms_n1, n1_ms_back_to_back=ms_n1_b2b,
+                              n1_bound_ms=[bound_io, bound_stats],
+                              n1_twin_ms=ms_n1_twin)
     check(near and flip_share <= TOL_FLIP,
           f"version2 B2 vs twin: idx mismatch {flip_share}, near ties {near}")
     check(max(errs[:2]) <= TOL_FLOW_PX and errs[2] <= TOL_PROB,
           f"version2 B2 vs twin: errors {errs}")
     check(same, "version2 flow_batch differs from B2 on its own features")
-    return launches, max(errs), ms_b2
+    n1 = {"name": "contrastive_norm", "route": "cuda",
+          "source": "depth_estimation_tpu_torch/csrc/contrastive_norm.cu",
+          "replaces": "none (depth_estimation_tpu/ops/normalization.py: jnp)",
+          "launches": n1_launches, "max_abs_err": n1_err, "ms": ms_n1,
+          "plain_ms": ms_n1_twin, "bound_ms": bound_io, "bound_by": bound_by,
+          "library_ms": None, "ms_back_to_back": ms_n1_b2b,
+          "bound_ms_own_traffic": bound_stats}
+    return launches, max(errs), ms_b2, n1
 
 
 def kernel_label(mangled):
@@ -4051,7 +4097,7 @@ def main() -> int:
     counts["match_throughput"] = phase_throughput_core(dev, card, report)
     phase_multiscale(dev, card, report)
     phase_radial(dev, card, report)
-    v2_launches, v2_err, v2_ms = phase_version2(dev, card, report)
+    v2_launches, v2_err, v2_ms, n1 = phase_version2(dev, card, report)
     rows, bounds, b4_solve, floors = phase_timing(dev, card, ests, frames,
                                                   gt_frames, report)
     training = phase_training(dev, card, report)
@@ -4199,7 +4245,7 @@ def main() -> int:
                  "liu_irls")
     irls.update(ms_back_to_back=rows["liu_irls_back_to_back"][0],
                 plain_ms_back_to_back=rows["liu_irls_back_to_back"][1])
-    kernels += [liu, irls, p1, p2]
+    kernels += [liu, irls, n1, p1, p2]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} not launched on its path")
     report["kernels"] = kernels

@@ -79,6 +79,12 @@ SIGNATURES = {
         # denom_v, b1, b2, imdxy, consts (host), n_consts, B, H, W, C, stream
         "liu_irls_launch": [_P] * 17 + [_I] * 5 + [_P],
     },
+    "contrastive_norm": {
+        # img, coef, mean, std, taps (host), k, B, H, W, C, stream
+        "contrastive_norm_stats_launch": [_P] * 5 + [_I] * 5 + [_P],
+        # img, mean, std, frame_mean, out, B, H, W, C, stream
+        "contrastive_norm_apply_launch": [_P] * 5 + [_I] * 4 + [_P],
+    },
     "vpu_peak": {
         # x, out, n, n_iter, variant, threads, blocks_per_sm, stream
         "vpu_peak_launch": [_P, _P] + [_I] * 5 + [_P],
